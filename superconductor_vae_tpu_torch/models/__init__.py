@@ -1,0 +1,4 @@
+from .config import ModelConfig, config_from_meta, tiny_test_config
+from .decoder import FormulaDecoder
+from .encoder import MaterialsEncoder
+from .init import init_params

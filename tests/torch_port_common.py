@@ -1,0 +1,85 @@
+"""Shared set-up of the parity tests between the JAX package and its
+PyTorch port (tests/test_torch_port_*.py).
+
+Parameters are numpy trees of the flax models' shapes (taken with
+``jax.eval_shape``, which compiles nothing), filled from
+``np.random.default_rng(seed)``; the same trees drive the JAX model and,
+through ``params_from_jax``, the port.  Inputs come from numpy too.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from superconductor_vae_tpu.models import FormulaDecoder as JaxDecoder
+from superconductor_vae_tpu.models import MaterialsEncoder as JaxEncoder
+from superconductor_vae_tpu.models.config import ModelConfig as JaxConfig
+from superconductor_vae_tpu_torch.checkpoint import params_from_jax
+from superconductor_vae_tpu_torch.models import ModelConfig
+
+
+def jax_config(cfg: ModelConfig) -> JaxConfig:
+    return JaxConfig(**dataclasses.asdict(cfg))
+
+
+def _fill(tree, rng: np.random.Generator):
+    """Weights scaled so activations stay O(1) at any width."""
+    def leaf(path, s):
+        name = path[-1].key
+        if name == 'kernel':
+            return (rng.standard_normal(s.shape) / np.sqrt(s.shape[0])).astype(np.float32)
+        if name == 'scale':
+            return (1.0 + 0.1 * rng.standard_normal(s.shape)).astype(np.float32)
+        if name == 'query':
+            return (rng.standard_normal(s.shape) / np.sqrt(s.shape[1])).astype(np.float32)
+        return (0.1 * rng.standard_normal(s.shape)).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
+def param_trees(cfg: ModelConfig, seed: int = 0):
+    """Random (enc_params, dec_params) numpy trees of the flax models."""
+    jcfg = jax_config(cfg)
+    b, key = 2, jax.random.PRNGKey(0)
+    enc_shapes = jax.eval_shape(
+        JaxEncoder(jcfg).init, key, jnp.zeros((b, cfg.max_elements), jnp.int32),
+        jnp.zeros((b, cfg.max_elements)), jnp.zeros((b, cfg.max_elements), bool),
+        jnp.zeros((b, cfg.magpie_dim)), jnp.zeros((b,)))
+    dec_shapes = jax.eval_shape(
+        JaxDecoder(jcfg).init, key, jnp.zeros((b, cfg.latent_dim)),
+        jnp.zeros((b, cfg.max_len), jnp.int32),
+        jnp.zeros((b, cfg.stoich_input_dim)), jnp.zeros((b, cfg.heads_input_dim)))
+    rng = np.random.default_rng(seed)
+    return _fill(enc_shapes, rng), _fill(dec_shapes, rng)
+
+
+def batch(cfg: ModelConfig, b: int, seed: int = 1):
+    """A numpy eval batch: element slots, magpie, tc and target tokens."""
+    rng = np.random.default_rng(seed)
+    n_el = rng.integers(1, cfg.max_elements + 1, b)
+    mask = np.arange(cfg.max_elements)[None, :] < n_el[:, None]
+    frac = rng.random((b, cfg.max_elements)).astype(np.float32) * mask
+    frac = (frac / frac.sum(axis=1, keepdims=True)).astype(np.float32)
+    return {
+        'element_indices': (rng.integers(1, cfg.n_elements + 1,
+                                         (b, cfg.max_elements)) * mask).astype(np.int32),
+        'element_fractions': frac,
+        'element_mask': mask,
+        'magpie': rng.standard_normal((b, cfg.magpie_dim)).astype(np.float32),
+        'tc': rng.standard_normal(b).astype(np.float32),
+        'tokens': rng.integers(0, cfg.vocab_size, (b, cfg.max_len)).astype(np.int32),
+    }
+
+
+def to_torch(batch_np):
+    return {k: torch.as_tensor(v).long() if v.dtype == np.int32 else torch.as_tensor(v)
+            for k, v in batch_np.items()}
+
+
+def port_models(cfg: ModelConfig, trees):
+    """The port's encoder and decoder on the CPU, loaded from ``trees``."""
+    return params_from_jax(trees[0], trees[1], cfg, device='cpu')
