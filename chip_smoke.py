@@ -19,7 +19,22 @@
    through K1 and once through the plain attention path.  The two token
    streams must agree except where the top two logits were within 1e-4;
    8 rows also run on the CPU and must agree with the card.
-5. Prints the kernels' JSON line, then as its last line
+5. K2 phase: the flash-attention forward against its plain version at the
+   JAX tests' shapes ((T, Dh) in (128, 64), (256, 72), (128, 128), T=100
+   at Dh=72) and at B=64, H=8, Dh=72, T=256, in float32 and bfloat16; its
+   times at B=64, H=8, Dh=72, T in {128, 256} beside the plain version's,
+   the bound's and scaled_dot_product_attention's (a yardstick the port
+   never calls); then the dispatch of fused_attention, K2's entry point:
+   K2 at T >= 128 (its launches are the ones reported), the plain
+   attention at T=29, a refusal for inputs that require grad.
+6. Train phase: the teacher-forced train step (training/train_step.py) at
+   run4's widths with weights from a seed, float32, dropout 0.1, on the
+   same 1,024 rows: a warm-up step, then 8 timed steps (train samples/s,
+   peak memory, first and last loss), every metric finite, every group of
+   parameters changed, no K1 or K2 launch; one step under the profiler;
+   one step of 8 rows with dropout off on the card and on the CPU from the
+   same weights, whose metrics, AdamW moments and updates must agree.
+7. Prints the kernels' JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -46,6 +61,7 @@ TIE = 1e-4                        # top-two logit gap under which argmax may fli
 # H100 SXM (NVIDIA data sheet): HBM rate, float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12          # tensor cores, dense
 
 
 def check(cond, msg):
@@ -172,15 +188,129 @@ def kernel_phase(torch, dev):
     return rows[(torch.float32, 29)], max_err[torch.float32]
 
 
+# -- K2 phase -----------------------------------------------------------------
+
+K2_CHECKS = [(2, 128, 2, 64), (2, 256, 2, 72), (2, 128, 2, 128), (2, 100, 2, 72),
+             (64, 256, 8, 72)]                   # (B, T, H, Dh): JAX tests' shapes + timed
+K2_TIMED = [(64, 128, 8, 72), (64, 256, 8, 72)]
+# float32: other summation order only (the JAX tests' tolerance); bfloat16:
+# output rounded once to bf16 and the probabilities rounded to bf16 against
+# the running max (kernel) or the final max (plain): two bf16 ulp (2**-6
+# relative) plus 2e-3 absolute
+K2_TOL = {'float32': dict(rtol=2e-5, atol=2e-5), 'bfloat16': dict(rtol=2 ** -6, atol=2e-3)}
+
+
+def k2_bytes_ops(b, t, h, dh, itemsize):
+    """K2's least traffic and work: q, k, v read once, out written once;
+    a q.k and a p.v product for each of the T(T+1)/2 causal pairs."""
+    return 4 * b * t * h * dh * itemsize, 4 * dh * b * h * t * (t + 1) // 2
+
+
+def k2_phase(torch, dev):
+    """K2, the flash-attention forward, against its plain version; its
+    times; and the dispatch of fused_attention, K2's entry point, whose
+    kernel launches are the ones reported (no model path calls K2)."""
+    import torch.nn.functional as F
+    from superconductor_vae_tpu_torch.ops.attention import causal_mask, mha_attention
+    from superconductor_vae_tpu_torch.ops.fused_attention import (
+        flash_attention, flash_attention_ref, fused_attention)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def inputs(b, t, h, dh, dtype):
+        return [torch.randn(b, t, h, dh, generator=gen, device=dev).to(dtype)
+                for _ in range(3)]
+
+    max_err = 0.0
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = K2_TOL[str(dtype).split('.')[1]]
+            for b, t, h, dh in K2_CHECKS:
+                q, k, v = inputs(b, t, h, dh, dtype)
+                out = flash_attention(q, k, v)
+                ref = flash_attention_ref(q, k, v)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                print(f'K2 check {str(dtype):15s} B={b} T={t:3d} H={h} Dh={dh:3d}: '
+                      f'max_abs_err={err:.3e} (tol {tol})')
+                check(torch.allclose(out.float(), ref.float(), **tol),
+                      f'K2 disagrees with the plain version ({dtype}, T={t}, Dh={dh})')
+                if dtype == torch.float32:
+                    max_err = max(max_err, err)
+
+        rows = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for b, t, h, dh in K2_TIMED:
+                sets = [inputs(b, t, h, dh, dtype) for _ in range(4)]   # > 50 MB L2
+                kern, kern_host = device_ms(torch, flash_attention, sets)
+                # ~20 kernels a call: few enough calls to stay in the launch queue
+                plain, _ = device_ms(torch, flash_attention_ref, sets, iters=20)
+
+                def sdpa(q, k, v):
+                    return F.scaled_dot_product_attention(
+                        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        is_causal=True)
+                lib, _ = device_ms(torch, sdpa, sets, iters=20)
+                nbytes, ops = k2_bytes_ops(b, t, h, dh, sets[0][0].element_size())
+                peak = F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+                bound = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
+                by = 'bytes' if nbytes / HBM_BYTES_PER_S >= ops / peak else 'operations'
+                print(f'K2 time {str(dtype):15s} B={b} T={t} H={h} Dh={dh}: kernel '
+                      f'{kern * 1e3:.2f} us, plain {plain * 1e3:.2f} us, sdpa '
+                      f'{lib * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({by}: '
+                      f'{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); kernel / bound '
+                      f'{kern / bound:.2f}; host per call {kern_host * 1e3:.1f} us')
+                rows[(dtype, t)] = dict(ms=kern, plain_ms=plain, bound_ms=bound,
+                                        bound_by=by, library_ms=lib)
+                del sets
+        torch.cuda.empty_cache()
+
+        # the entry point: fused_attention dispatches to K2 for causal
+        # self-attention at T >= 128 on the card, and to the plain attention
+        # below that (the model's T = 29)
+        flash_attention.launches = 0
+        for b, t, h, dh in K2_TIMED:
+            q, k, v = inputs(b, t, h, dh, torch.float32)
+            out = fused_attention(q, k, v, causal=True)
+            want = flash_attention_ref(q, k, v)
+            check(torch.allclose(out, want, **K2_TOL['float32']),
+                  f'fused_attention at T={t} disagrees with the plain version')
+        launches = flash_attention.launches
+        check(launches == len(K2_TIMED), f'fused_attention launched K2 {launches} '
+              f'times for {len(K2_TIMED)} calls at T >= 128')
+        q, k, v = inputs(256, 29, 8, 72, torch.float32)
+        out = fused_attention(q, k, v, causal=True)
+        check(flash_attention.launches == launches,
+              'fused_attention launched K2 at T=29')
+        check(torch.equal(out, mha_attention(q, k, v, causal_mask(29, device=dev))),
+              'fused_attention at T=29 is not mha_attention with the causal mask')
+    q, k, v = (x.requires_grad_() for x in inputs(2, 128, 2, 72, torch.float32))
+    try:
+        fused_attention(q, k, v, causal=True)
+        raised = False
+    except RuntimeError:
+        raised = True
+    check(raised, 'K2 did not refuse inputs that require grad')
+    check(flash_attention.launches == launches, 'K2 launched on inputs that require grad')
+    print(f'K2 dispatch: {launches} launches through fused_attention at T >= 128, '
+          f'none at T=29, refused under grad')
+    return rows, max_err, launches
+
+
 # -- end-to-end phase ---------------------------------------------------------
 
 def make_batches(torch, rows, tok, magpie_dim, dev):
-    """Eval batches from CSV rows.  Tc: log1p, z-scored over the
-    superconductors among the rows; Magpie: NaN -> column mean, z-scored
-    over the same rows.  Stand-ins for the training corpus's statistics,
-    which come with the data slice (weights here are random anyway)."""
+    """Batches of BATCH rows from CSV rows, with the eval path's keys and
+    the train step's (is_sc, hp, family, comp_targets, label), as the data
+    pipeline builds them.  Tc: log1p, z-scored over the superconductors
+    among the rows; Magpie: NaN -> column mean, z-scored over the same
+    rows; compositional targets z-scored over the same rows.  Stand-ins for
+    the training corpus's statistics (NormStats), which come with the data
+    slice (weights here are random anyway)."""
     import numpy as np
-    from superconductor_vae_tpu_torch.data import composition_slots
+    from superconductor_vae_tpu_torch.data import (
+        category_to_label, composition_slots, normalized_compositional_targets)
+    from superconductor_vae_tpu_torch.models.family_classifier import classify_batch
 
     check(rows['magpie'].shape[1] == magpie_dim,
           f'{rows["magpie"].shape[1]} feature columns, model wants {magpie_dim}')
@@ -192,9 +322,15 @@ def make_batches(torch, rows, tok, magpie_dim, dev):
     mg = ((mg - mg.mean(0)) / (mg.std(0) + 1e-8)).astype(np.float32)
     idx, frac, mask = composition_slots(rows['formula'])
     tokens = tok.encode_batch(rows['formula'])
+    is_sc = rows['is_sc']
     full = {'element_indices': idx.astype(np.int64), 'element_fractions': frac,
             'element_mask': mask, 'magpie': mg, 'tc': tc,
-            'tokens': tokens.astype(np.int64)}
+            'tokens': tokens.astype(np.int64),
+            'is_sc': is_sc.astype(np.int64), 'hp': rows['hp'],
+            'family': np.where(is_sc == 1, classify_batch(idx, mask), 0).astype(np.int64),
+            'comp_targets': normalized_compositional_targets(idx, frac, mask)[0],
+            'label': np.array([category_to_label(c, requires_high_pressure=int(h))
+                               for c, h in zip(rows['category'], rows['hp'])], np.int64)}
     n = len(rows['formula'])
     return [{k: torch.as_tensor(v[i:i + BATCH]).to(dev) for k, v in full.items()}
             for i in range(0, n, BATCH)]
@@ -224,9 +360,10 @@ def compare_streams(got, want, eos_id, what):
     return ties
 
 
-def trace_batch(torch, fn):
-    """One eval batch under torch.profiler: the device's busy share of the
-    wall time (kernel time summed over the batch) and the top kernels."""
+def trace_batch(torch, fn, what):
+    """``fn`` (one batch, or one step) under torch.profiler: the device's
+    busy share of the wall time (kernel time summed over the call) and the
+    top kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -234,17 +371,30 @@ def trace_batch(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device events, without user annotations (AdamW's step is one): their
+    # span would count the kernels inside them twice
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in device if not getattr(e, 'is_user_annotation', False)]
+    for e in device:
+        if e not in kernels:
+            print(f'trace: annotation {e.key[:60]!r} ({e.self_device_time_total / 1e3:.2f} ms) '
+                  'left out of the busy time')
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
         print('trace: the profiler recorded no device time; busy share not measured')
         return
-    print(f'trace: one batch of {BATCH} under the profiler: wall {wall_us / 1e3:.1f} ms, '
+    print(f'trace: {what} under the profiler: wall {wall_us / 1e3:.1f} ms, '
           f'device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), '
           f'{sum(e.count for e in kernels)} kernel launches')
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         print(f'trace:   {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x  {e.key[:90]}')
+    gemm = [e for e in kernels if 'gemm' in e.key.lower()]
+    gemm_us = sum(e.self_device_time_total for e in gemm)
+    print(f'trace:   GEMM kernels {gemm_us / 1e3:.1f} ms ({100 * gemm_us / busy_us:.1f}% of '
+          f'busy) over {sum(e.count for e in gemm)} launches; the rest '
+          f'{(busy_us - gemm_us) / 1e3:.1f} ms over '
+          f'{sum(e.count for e in kernels) - sum(e.count for e in gemm)} launches')
 
 
 def e2e_phase(torch, dev):
@@ -338,7 +488,8 @@ def e2e_phase(torch, dev):
               f'card and CPU disagree on {key}')
 
     trace_batch(torch, lambda: eval_batch(encoder, decoder, batches[0], gcfg,
-                                          type_masks=type_masks))
+                                          type_masks=type_masks),
+                f'one eval batch of {BATCH}')
 
     gen_all = torch.cat([o['generated'] for o in outs]).cpu().numpy()
     tgt = np.concatenate([bt['tokens'][:, 1:].cpu().numpy() for bt in batches])
@@ -351,7 +502,161 @@ def e2e_phase(torch, dev):
           f'near-tie divergences {ties}; true-AR exact (random weights) {exact:.4f}')
     for r in range(3):
         print(f'e2e: {rows["formula"][r]!r} -> {tok.decode(gen_all[r])!r}')
-    return launches
+    return launches, batches
+
+
+# -- train phase --------------------------------------------------------------
+
+N_TRAIN_STEPS = 8
+METRIC_TOL = dict(rtol=1e-4, atol=1e-6)   # card vs CPU: float32, other summation orders
+
+
+def _tree_check(got, want, what):
+    """Card against CPU, tensor by tensor: 1e-3 relative plus 1e-4 of the
+    largest magnitude in the tree (elements near zero carry the summation
+    noise of the whole tree)."""
+    scale = max(w.abs().max().item() for w in want.values())
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].cpu()
+        bound = 1e-3 * w.abs() + 1e-4 * scale
+        worst = max(worst, ((g - w).abs() / bound).max().item())
+    print(f'train: card vs CPU {what}: worst error / tolerance {worst:.3f}')
+    check(worst <= 1.0, f'card and CPU disagree on {what}')
+
+
+def _group_tensors(state):
+    """{group: {name: (param, exp_avg)}} of the three update groups."""
+    out = {}
+    for name, module, opt in (('encoder', state.encoder, state.enc_opt),
+                              ('decoder', state.decoder, state.dec_opt),
+                              ('projection', state.pz_proj, state.pz_opt)):
+        out[name] = {n: (p.detach().clone(), opt.state[p]['exp_avg'].clone()
+                         if p in opt.state else None)
+                     for n, p in module.named_parameters()}
+    return out
+
+
+def train_phase(torch, dev, batches):
+    """The teacher-forced train step at run4's widths with weights from a
+    seed, float32, bench.py's TrainConfig (batch 256, physics-Z with the
+    learnable projection, lr 3e-5, weight decay 0.01, clip 1) without the
+    set decoder and the round-trip loss, run4's physics-Z weight 1 and
+    dropout 0.1: 1 warm-up step and N_TRAIN_STEPS timed steps over the 4
+    batches, one step under the profiler, and one step of 8 rows with
+    dropout off on the card and on the CPU from the same weights."""
+    import math
+    from superconductor_vae_tpu_torch.models import config_from_meta
+    from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+    from superconductor_vae_tpu_torch.ops.fused_attention import flash_attention
+    from superconductor_vae_tpu_torch.ops.physics_z_loss import physics_z_loss
+    from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
+    from superconductor_vae_tpu_torch.training import (
+        TrainConfig, build_luts, create_train_state, default_dyn, make_train_step)
+
+    meta = json.loads(META.read_text())
+    cfg = config_from_meta(meta['model_config'])
+    tcfg = TrainConfig(batch_size=BATCH, use_physics_z=True, magpie_proj_learnable=True,
+                       hungarian_enabled=False, use_round_trip=False)
+    dyn = dict(default_dyn(tcfg), physz_w=float(meta['controllers']['physz']['weight']))
+    print(f'train: run4 widths, float32, dropout {cfg.dropout}, batch {BATCH}, lr '
+          f'{tcfg.learning_rate}, wd {tcfg.weight_decay}, clip {tcfg.grad_clip}, '
+          f'physz_w {dyn["physz_w"]}, theory_w {tcfg.theory_weight}')
+    tok = default_tokenizer(max_len=cfg.max_len)
+    luts = build_luts(tok, device=dev)
+    step = make_train_step(tcfg, luts)
+
+    state = create_train_state(cfg, tcfg, seed=SEED, device=dev)
+    n_params = {name: sum(p.numel() for p, _ in g.values())
+                for name, g in _group_tensors(state).items()}
+    print(f'train: parameters {n_params} from seed {SEED}')
+    start = _group_tensors(state)
+    state, _ = step(state, batches[0], SEED, dyn)              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts at 0 just before, read just after
+    decode_step_attention.launches = 0
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    steps = []
+    for i in range(N_TRAIN_STEPS):
+        state, m = step(state, batches[(i + 1) % len(batches)], SEED, dyn)
+        steps.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k_launches = (decode_step_attention.launches, flash_attention.launches)
+    peak = torch.cuda.max_memory_allocated()
+    vals = [{k: v.item() for k, v in m.items()} for m in steps]
+    check(k_launches == (0, 0), f'the train step launched K1/K2 {k_launches} times; '
+          'the JAX step runs no Pallas kernel')
+    for i, v in enumerate(vals):
+        bad = [k for k, x in v.items() if not math.isfinite(x)]
+        check(not bad, f'train step {i + 1}: metrics not finite: {bad}')
+    end = _group_tensors(state)
+    for name in start:
+        changed = sum(not torch.equal(start[name][k][0], end[name][k][0]) for k in start[name])
+        print(f'train: {name}: {changed} of {len(start[name])} parameter tensors changed')
+        check(changed > 0, f'train: no parameter of the {name} changed')
+    del start, end
+    print(f'train: {N_TRAIN_STEPS} steps of {BATCH} in {wall:.3f} s = '
+          f'{N_TRAIN_STEPS * BATCH / wall:.1f} train samples/s; peak memory '
+          f'{peak / 2 ** 30:.2f} GiB; K1/K2 launches {k_launches}')
+    for i in (0, N_TRAIN_STEPS - 1):
+        print(f'train: step {i + 2}: total {vals[i]["total"]:.4f}, grad_norm '
+              f'{vals[i]["grad_norm"]:.3f}, formula {vals[i]["formula_loss"]:.4f}, '
+              f'physics_z {vals[i]["physics_z_loss"]:.4f}, token_accuracy '
+              f'{vals[i]["token_accuracy"]:.4f}')
+    trace_batch(torch, lambda: step(state, batches[1], SEED, dyn),
+                f'one train step of {BATCH}')
+    samples_per_s = N_TRAIN_STEPS * BATCH / wall
+    del state, steps
+    torch.cuda.empty_cache()
+
+    # card against CPU: one step of 8 rows from the same weights, dropout off
+    cfg0 = dataclasses.replace(cfg, dropout=0.0)
+    small = {k: v[:N_CPU_ROWS] for k, v in batches[0].items()}
+    runs = []
+    for where in (dev, torch.device('cpu')):
+        st = create_train_state(cfg0, tcfg, seed=SEED + 1, device=where)
+        bt = {k: v.to(where) for k, v in small.items()}
+        with torch.no_grad():
+            enc_out = st.encoder.train()(bt['element_indices'], bt['element_fractions'],
+                                         bt['element_mask'], bt['magpie'], bt['tc'])
+            pz = physics_z_loss(enc_out['z'], bt['comp_targets'], bt['magpie'], bt['tc'],
+                                proj=st.pz_proj)
+        before = _group_tensors(st)
+        st, m = make_train_step(tcfg, build_luts(tok, device=where))(st, bt, SEED, dyn)
+        runs.append((pz, m, before, _group_tensors(st)))
+        del st
+    (pz_c, m_c, before_c, after_c), (pz_h, m_h, before_h, after_h) = runs
+    for what, got, want in (('physics_z_loss', pz_c, pz_h), ('step metrics', m_c, m_h)):
+        for k in want:
+            g, w = got[k].item(), want[k].item()
+            ok = abs(g - w) <= METRIC_TOL['atol'] + METRIC_TOL['rtol'] * abs(w)
+            check(ok, f'train: card {g!r} and CPU {w!r} disagree on {what} {k}')
+        print(f'train: card vs CPU: {len(want)} {what} agree within {METRIC_TOL}')
+    lr = tcfg.learning_rate
+    for name in after_h:
+        _tree_check({k: v[1] for k, v in after_c[name].items()},
+                    {k: v[1] for k, v in after_h[name].items()}, f'{name} AdamW mu')
+        mu_scale = max(v[1].abs().max().item() for v in after_h[name].values())
+        worst = 0.0
+        for k, (p_h, mu_h) in after_h[name].items():
+            d_c = (after_c[name][k][0] - before_c[name][k][0]).cpu()
+            d_h = p_h - before_h[name][k][0]
+            # an update is at most lr (1 + wd |p|) at step 1; where the
+            # gradient is far above its tree's float32 noise the sign is
+            # sure and the two updates agree to 1e-3
+            check(bool(((d_c - d_h).abs() <= 2 * lr * (1 + 1e-2 * p_h.abs()) + 1e-7).all()),
+                  f'train: {name} {k} update out of bounds')
+            sure = mu_h.abs() > 1e-2 * mu_scale
+            ulp = 4 * torch.finfo(torch.float32).eps * before_h[name][k][0].abs()
+            err = ((d_c - d_h).abs() / (1e-3 * d_h.abs() + ulp + 1e-9))[sure].max().item() \
+                if bool(sure.any()) else 0.0
+            worst = max(worst, err)
+        print(f'train: card vs CPU {name} parameter updates: worst error / tolerance {worst:.3f}')
+        check(worst <= 1.0, f'card and CPU disagree on the {name} updates')
+    return samples_per_s, peak
 
 
 def main() -> int:
@@ -375,7 +680,7 @@ def main() -> int:
     dev = torch.device('cuda')
 
     t0 = time.perf_counter()
-    libs = _build.build('decode_attention')
+    libs = _build.build('decode_attention', 'flash_attention')   # one nvcc each, together
     print(f'build: {time.perf_counter() - t0:.1f} s')
     for name, path in libs.items():
         log = path.with_name(path.name + '.log')
@@ -384,16 +689,25 @@ def main() -> int:
                 print(f'build {name}: {line.strip()}')
 
     k1, k1_err = kernel_phase(torch, dev)
-    launches = e2e_phase(torch, dev)
+    launches, batches = e2e_phase(torch, dev)
+    k2_rows, k2_err, k2_launches = k2_phase(torch, dev)
+    train_phase(torch, dev, batches)
 
     print(f'total: {time.perf_counter() - t_start:.1f} s')
-    print(f'kernels: ["K1 decode_step_attention"] launches: {{"K1 decode_step_attention": {launches}}}')
+    print(f'kernels: ["K1 decode_step_attention", "K2 flash_attention"] launches: '
+          f'{{"K1 decode_step_attention": {launches}, "K2 flash_attention": {k2_launches}}}')
     print(json.dumps({'kernels': [{
         'name': 'K1 decode_step_attention', 'route': 'cuda',
         'source': 'superconductor_vae_tpu_torch/csrc/decode_attention.cu',
         'replaces': 'superconductor_vae_tpu/ops/pallas_decode.py:80',
         'launches': launches, 'max_abs_err': k1_err,
         **k1,
+    }, {
+        'name': 'K2 flash_attention', 'route': 'cuda',
+        'source': 'superconductor_vae_tpu_torch/csrc/flash_attention.cu',
+        'replaces': 'superconductor_vae_tpu/ops/pallas_attention.py:73',
+        'launches': k2_launches, 'max_abs_err': k2_err,
+        **k2_rows[(torch.float32, 128)],
     }]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

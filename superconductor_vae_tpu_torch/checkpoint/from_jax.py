@@ -12,15 +12,17 @@ The port's submodules carry the flax module names, so a flax leaf path
 
 The trees come in as numpy arrays (``jax.tree.map(np.asarray, params)``),
 so this module needs no JAX.  Loading is strict: a missing, unexpected or
-mis-shaped parameter raises.
+mis-shaped parameter raises.  The physics-Z Magpie projection
+(``{'kernel': [M, 62], 'bias': [62]}``) becomes an ``nn.Linear``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..models.config import ModelConfig
 from ..models.decoder import FormulaDecoder
@@ -56,13 +58,20 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def params_from_jax(enc_params: Mapping, dec_params: Mapping, cfg: ModelConfig,
-                    device='cuda', dtype=torch.float32
-                    ) -> Tuple[MaterialsEncoder, FormulaDecoder]:
+                    device='cuda', dtype=torch.float32,
+                    pz_params: Optional[Mapping] = None):
     """The JAX package's encoder and decoder params, as numpy trees, loaded
     into a new ``MaterialsEncoder`` and ``FormulaDecoder`` on ``device``
-    (in eval mode)."""
+    (in eval mode).  Given the train state's ``pz_params`` too, returns
+    (encoder, decoder, projection) with the projection as an
+    ``nn.Linear(M, 62)``."""
     encoder = MaterialsEncoder(cfg, device=device, dtype=dtype)
     decoder = FormulaDecoder(cfg, device=device, dtype=dtype)
     encoder.load_state_dict(state_dict_from_flax(enc_params), strict=True)
     decoder.load_state_dict(state_dict_from_flax(dec_params), strict=True)
-    return encoder.eval(), decoder.eval()
+    if pz_params is None:
+        return encoder.eval(), decoder.eval()
+    m, out = np.shape(pz_params['kernel'])
+    proj = nn.Linear(m, out, device=device, dtype=dtype)
+    proj.load_state_dict(state_dict_from_flax(pz_params), strict=True)
+    return encoder.eval(), decoder.eval(), proj

@@ -1,15 +1,46 @@
-"""Pieces of training/train_step.py that the inference path needs:
-the decoder's stoichiometry conditioning and the tokenizer LUTs on the
-device.  The train step itself comes with the training slice."""
+"""The teacher-forced multi-task train step (port of training/train_step.py).
+
+One step: encoder forward in train mode, the decoder's conditioning
+(``heads_pred_for_decoder``, ``stoich_conditioning``), the decoder's
+teacher-forced forward, the physics-Z loss through the learnable Magpie
+projection, the 17-term ``multitask_loss`` and the theory loss (at its
+weight, 0 by default); then backward, and a separate global-norm clip and
+AdamW update for each of three parameter groups: the encoder, the decoder
+and the physics-Z projection, as the JAX step runs ``tx_enc``, ``tx_dec``
+and a second ``tx_enc`` state.
+
+Differences from the JAX step, all in how and none in what it computes:
+- the state holds ``nn.Module``s and ``torch.optim.AdamW``s and is updated
+  IN PLACE (the step returns the same object);
+- dropout masks come from torch's generator, seeded from the step's seed
+  and the state's step count (the counterpart of
+  ``jax.random.fold_in(rng, state.step)``), so they cannot equal JAX's;
+- ``dyn`` holds plain numbers rather than traced scalars.
+The options whose paths are not ported yet raise ``NotImplementedError``
+(``check_supported``).
+"""
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
+from torch import nn
 
+from ..models import FormulaDecoder, MaterialsEncoder, init_params
+from ..models.config import ModelConfig
+from ..ops.losses import multitask_loss, tc_kelvin
+from ..ops.physics_z_loss import init_magpie_proj, physics_z_loss
+from ..ops.theory import theory_loss
 from ..tokenizer import FractionAwareTokenizer
 from ..utils.device import resolve_device
+from .config import TrainConfig
+
+# optax.adamw's defaults
+ADAM_BETAS = (0.9, 0.999)
+ADAM_EPS = 1e-8
 
 
 def build_luts(tokenizer: FractionAwareTokenizer,
@@ -30,3 +61,206 @@ def stoich_conditioning(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     em = batch['element_mask'].float()
     count = em.sum(dim=1, keepdim=True)
     return torch.cat([batch['element_fractions'] * em, count], dim=1)
+
+
+def check_supported(tcfg: TrainConfig, rl_enabled: bool = False) -> None:
+    """Raises ``NotImplementedError`` for a config whose step needs a part
+    of the JAX step that is not ported yet, naming the part."""
+    missing = []
+    if rl_enabled:
+        missing.append('rl_enabled (SCST/RLOO rollouts: the RL slice)')
+    if tcfg.hungarian_enabled:
+        missing.append('hungarian_enabled (set decoder and Hungarian matching: '
+                       'the set-decoder slice)')
+    if tcfg.use_round_trip and tcfg.a5_weight > 0:
+        missing.append('use_round_trip (A5 round-trip loss: the phase-2 slice)')
+    if tcfg.soft_token_enabled:
+        missing.append('soft_token_enabled (soft-token sampling: the '
+                       'decoding-variants slice)')
+    if tcfg.accumulation_steps > 1:
+        missing.append('accumulation_steps > 1 (gradient accumulation: the '
+                       'host-loop slice)')
+    if missing:
+        raise NotImplementedError('train step: not ported yet: ' + '; '.join(missing))
+
+
+def make_optimizer(tcfg: TrainConfig, params) -> torch.optim.AdamW:
+    """AdamW as ``optax.adamw`` runs it: betas (0.9, 0.999), eps 1e-8
+    outside the square root, bias correction from step 1, weight decay
+    decoupled and applied to every parameter.  The global-norm clip that
+    the JAX chain puts in front is ``clip_by_global_norm_``, called by the
+    step; the learning rate is set with ``set_learning_rate``."""
+    if tcfg.accumulation_steps > 1:
+        check_supported(tcfg)
+    return torch.optim.AdamW(params, lr=tcfg.learning_rate, betas=ADAM_BETAS,
+                             eps=ADAM_EPS, weight_decay=tcfg.weight_decay)
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float):
+    """Sets the learning rate of every parameter group; returns the
+    optimizer."""
+    for group in optimizer.param_groups:
+        group['lr'] = lr
+    return optimizer
+
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (``optax.global_norm``)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """``optax.clip_by_global_norm`` in place: when the global norm is at
+    least ``max_norm`` every gradient becomes ``(g / norm) * max_norm``,
+    else it is left alone; no epsilon (``torch.nn.utils.clip_grad_norm_``
+    divides by norm + 1e-6 instead).  Returns the norm before clipping.
+    Decided on the device: no wait for the host."""
+    norm = global_norm(grads)
+    keep = norm < max_norm
+    one = torch.ones((), device=norm.device, dtype=norm.dtype)
+    torch._foreach_div_(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(keep, one, one * max_norm))
+    return norm
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Step count, models and their optimizers.  ``pz_proj`` is the
+    learnable Magpie projection of the physics-Z loss (None: the fixed
+    one), with its own optimizer ``pz_opt``."""
+    step: int
+    encoder: MaterialsEncoder
+    decoder: FormulaDecoder
+    enc_opt: torch.optim.AdamW
+    dec_opt: torch.optim.AdamW
+    pz_proj: Optional[nn.Linear] = None
+    pz_opt: Optional[torch.optim.AdamW] = None
+
+    @classmethod
+    def from_modules(cls, encoder: MaterialsEncoder, decoder: FormulaDecoder,
+                     tcfg: TrainConfig, pz_proj: Optional[nn.Linear] = None,
+                     step: int = 0) -> 'TrainState':
+        """A state over existing modules with fresh optimizers."""
+        return cls(step=step, encoder=encoder, decoder=decoder,
+                   enc_opt=make_optimizer(tcfg, encoder.parameters()),
+                   dec_opt=make_optimizer(tcfg, decoder.parameters()),
+                   pz_proj=pz_proj,
+                   pz_opt=(make_optimizer(tcfg, pz_proj.parameters())
+                           if pz_proj is not None else None))
+
+    def groups(self) -> List[Tuple[List[nn.Parameter], torch.optim.AdamW]]:
+        """(parameters, optimizer) of each clip-and-update group."""
+        out = [(list(self.encoder.parameters()), self.enc_opt),
+               (list(self.decoder.parameters()), self.dec_opt)]
+        if self.pz_proj is not None:
+            out.append((list(self.pz_proj.parameters()), self.pz_opt))
+        return out
+
+
+def create_train_state(mcfg: ModelConfig, tcfg: TrainConfig, seed: int = 0,
+                       device='cuda') -> TrainState:
+    """Encoder, decoder and (with ``use_physics_z`` and
+    ``magpie_proj_learnable``) the Magpie projection on ``device``, with
+    weights drawn from ``seed`` (models/init.py, then the projection), in
+    float32, and fresh optimizers."""
+    check_supported(tcfg)
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    encoder = init_params(MaterialsEncoder(mcfg, device=device), gen)
+    decoder = init_params(FormulaDecoder(mcfg, device=device), gen)
+    pz_proj = None
+    if tcfg.use_physics_z and tcfg.magpie_proj_learnable:
+        pz_proj = init_magpie_proj(gen, mcfg.magpie_dim, device=device)
+    return TrainState.from_modules(encoder, decoder, tcfg, pz_proj)
+
+
+def default_dyn(tcfg: TrainConfig) -> Dict[str, float]:
+    """The host scheduler's per-step scalars at their defaults (physics-Z
+    weight 0, every skip multiplier 1)."""
+    return {
+        'tc_w': tcfg.tc_weight,
+        'magpie_w': tcfg.magpie_weight,
+        'rl_w': tcfg.rl_weight,
+        'physz_w': 0.0,
+        'rl_temperature': tcfg.rl.temperature,
+        'entropy_weight': tcfg.rl.entropy_weight,
+        'm_magpie': 1.0, 'm_tc_class': 1.0,
+        'm_hp': 1.0, 'm_sc': 1.0,
+        'm_stop': 1.0, 'm_site_dup': 1.0,
+        'm_family': 1.0, 'm_physics_z': 1.0,
+        'soft_ratio': tcfg.soft_token_start_ratio,
+    }
+
+
+def dropout_seed(seed: int, step: int) -> int:
+    """The torch seed of the dropout masks of step ``step``."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+
+
+def train_loss(state: TrainState, tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
+               batch: Mapping[str, torch.Tensor], dyn: Mapping[str, float]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The JAX step's ``loss_fn`` without rollouts: (total, metrics)."""
+    enc, dec = state.encoder, state.decoder
+    enc_out = enc(batch['element_indices'], batch['element_fractions'],
+                  batch['element_mask'], batch['magpie'], batch['tc'])
+    heads_vec = enc.heads_pred_for_decoder(enc_out)
+    stoich = stoich_conditioning(batch)
+    dec_out = dec(enc_out['z'], batch['tokens'], stoich, heads_vec)
+    pz = None
+    if tcfg.use_physics_z:
+        pz = physics_z_loss(enc_out['z'], batch['comp_targets'], batch['magpie'],
+                            batch['tc'], proj=state.pz_proj)['total']
+    total, metrics = multitask_loss(tcfg.loss, enc_out, dec_out, batch,
+                                    luts['type_table'], dyn=dyn, physz_loss=pz)
+    if tcfg.use_theory_loss:
+        th = theory_loss(tc_kelvin(enc_out['tc_pred'], tcfg.loss), batch['family'],
+                         batch['element_fractions'], batch['element_indices'],
+                         batch['element_mask'])
+        total = total + dyn.get('theory_w', tcfg.theory_weight) * th['total']
+        metrics['theory_loss'] = th['total']
+        metrics['total'] = total
+    return total, metrics
+
+
+def make_train_step(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
+                    rl_enabled: bool = False):
+    """Returns ``step(state, batch, seed, dyn) -> (state, metrics)``.
+
+    ``batch`` holds element_indices / element_fractions / element_mask
+    [B, 12], magpie [B, M], tc [B], tokens [B, max_len], is_sc, hp, family
+    [B] and comp_targets [B, 15] on the models' device.  ``metrics`` are
+    detached scalars on the device (reading one waits for the step):
+    ``multitask_loss``'s, ``theory_loss`` and ``grad_norm``, the global
+    norm of the encoder and decoder gradients before clipping."""
+    check_supported(tcfg, rl_enabled)
+
+    def step(state: TrainState, batch: Mapping[str, torch.Tensor], seed: int,
+             dyn: Mapping[str, float]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        state.encoder.train()
+        state.decoder.train()
+        groups = state.groups()
+        device = groups[0][0][0].device
+        cuda = [device] if device.type == 'cuda' else []
+        with torch.random.fork_rng(devices=cuda):
+            torch.manual_seed(dropout_seed(seed, state.step))
+            for _, opt in groups:
+                opt.zero_grad(set_to_none=True)
+            total, metrics = train_loss(state, tcfg, luts, batch, dyn)
+            total.backward()
+        norms = []
+        for params, opt in groups:
+            # a parameter the loss does not reach has a zero gradient, and
+            # AdamW still decays it (as optax does)
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            norms.append(clip_by_global_norm_([p.grad for p in params],
+                                              tcfg.grad_clip))
+            opt.step()
+        state.step += 1
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics['grad_norm'] = torch.sqrt(norms[0] ** 2 + norms[1] ** 2)
+        return state, metrics
+
+    return step

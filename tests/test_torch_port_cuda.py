@@ -1,14 +1,20 @@
-"""K1 on the card: the CUDA kernel against its plain PyTorch version.
+"""The kernels on the card against their plain PyTorch versions (K1, the
+decode-step attention; K2, the flash-attention forward), and one train
+step on the card against the same step on the CPU.
 
 Needs an NVIDIA GPU and nvcc, and imports no JAX, so that it runs on a
 machine with the card only:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 Elsewhere every test skips.
 
-Tolerance: float32 output 1e-5 absolute and relative (other summation
+Tolerance: K1 float32 output 1e-5 absolute and relative (other summation
 order); bfloat16 output one bf16 ulp (2**-7 relative) plus 1e-3
 absolute, since both round a float32 result once.  Cache rows are copies
-and must be equal exactly.
+and must be equal exactly.  K2 float32 2e-5 (the JAX tests' tolerance);
+bfloat16 two bf16 ulp (2**-6 relative) plus 2e-3 absolute: the output is
+rounded once, and the probabilities are rounded to bf16 against the
+running max in the kernel and the final max in the plain version.  The
+train step's metrics 1e-4 relative (float32, other summation orders).
 """
 
 import pytest
@@ -16,6 +22,8 @@ import torch
 
 from superconductor_vae_tpu_torch.ops.decode_attention import (
     decode_step_attention, decode_step_attention_ref)
+from superconductor_vae_tpu_torch.ops.fused_attention import (
+    flash_attention, flash_attention_ref, fused_attention)
 
 pytestmark = pytest.mark.cuda
 
@@ -66,3 +74,85 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         odd = [torch.zeros(2, 8, 70, device=cuda) for _ in range(3)]
         cache = torch.zeros(2, 8, 30, 70, device=cuda)
         decode_step_attention(*odd, cache, cache.clone(), 0)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,t,h,dh', [(2, 128, 2, 64), (2, 256, 2, 72), (2, 128, 2, 128),
+                                      (2, 100, 2, 72), (1, 1, 1, 8), (3, 65, 8, 72),
+                                      (64, 256, 8, 72)])
+def test_flash_attention_matches_plain_version(cuda, dtype, b, t, h, dh):
+    g = torch.Generator(device=cuda).manual_seed(t)
+    q, k, v = (torch.randn(b, t, h, dh, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    ref = flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = (dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32
+           else dict(rtol=2 ** -6, atol=2e-3))
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+def test_flash_attention_dispatch_and_refusals(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(2, 128, 2, 72, generator=g, device=cuda) for _ in range(3))
+    before = flash_attention.launches
+    out = fused_attention(q, k, v, causal=True)                 # T >= 128: K2
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v), rtol=2e-5, atol=2e-5)
+    short = [x[:, :29].contiguous() for x in (q, k, v)]         # the model's T: plain
+    out = fused_attention(*short, causal=True)
+    assert flash_attention.launches == before + 1
+    from superconductor_vae_tpu_torch.ops.attention import causal_mask, mha_attention
+    assert torch.equal(out, mha_attention(*short, causal_mask(29, device=cuda)))
+    with pytest.raises(ValueError):                             # tq != tk
+        flash_attention(q, k[:, :64], v[:, :64])
+    with pytest.raises(ValueError):                             # not contiguous
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError):                             # Dh > 128
+        big = torch.zeros(1, 8, 1, 136, device=cuda)
+        flash_attention(big, big, big)
+    with pytest.raises(TypeError):                              # mixed dtypes
+        flash_attention(q.bfloat16(), k, v)
+    with pytest.raises(RuntimeError, match='no gradient'):
+        flash_attention(q.requires_grad_(), k, v)
+    assert flash_attention.launches == before + 1
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One step at tiny widths (512-wide latent for the physics-Z blocks),
+    dropout off, from the same seed on the card and on the CPU."""
+    import dataclasses
+    from superconductor_vae_tpu_torch.models import tiny_test_config
+    from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
+    from superconductor_vae_tpu_torch.training import (
+        TrainConfig, build_luts, create_train_state, default_dyn, make_train_step)
+
+    cfg = dataclasses.replace(tiny_test_config(), latent_dim=512, dropout=0.0)
+    tc = TrainConfig(hungarian_enabled=False, use_round_trip=False)
+    dyn = dict(default_dyn(tc), physz_w=1.0)
+    rng = torch.Generator().manual_seed(1)
+    b = 6
+    n_el = torch.randint(1, 6, (b,), generator=rng)
+    mask = torch.arange(12)[None] < n_el[:, None]
+    frac = torch.rand(b, 12, generator=rng) * mask
+    batch = {
+        'element_indices': torch.randint(1, 90, (b, 12), generator=rng) * mask,
+        'element_fractions': frac / frac.sum(1, keepdim=True), 'element_mask': mask,
+        'magpie': torch.randn(b, cfg.magpie_dim, generator=rng),
+        'tc': torch.randn(b, generator=rng),
+        'tokens': torch.randint(5, 200, (b, cfg.max_len), generator=rng),
+        'is_sc': torch.tensor([1, 1, 0, 1, 0, 1]), 'hp': torch.zeros(b),
+        'family': torch.randint(0, 14, (b,), generator=rng),
+        'comp_targets': torch.randn(b, 15, generator=rng),
+    }
+    metrics = []
+    for dev in (cuda, torch.device('cpu')):
+        state = create_train_state(cfg, tc, seed=0, device=dev)
+        step = make_train_step(tc, build_luts(default_tokenizer(max_len=cfg.max_len), dev))
+        _, m = step(state, {k: x.to(dev) for k, x in batch.items()}, 0, dyn)
+        metrics.append({k: x.item() for k, x in m.items()})
+    for key, want in metrics[1].items():
+        assert metrics[0][key] == pytest.approx(want, rel=1e-4, abs=1e-6), key

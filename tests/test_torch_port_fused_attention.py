@@ -1,0 +1,97 @@
+"""K2, the flash-attention forward, and its dispatcher: the port's plain
+version against the JAX package's Pallas kernel in interpret mode and its
+XLA reference, at the shapes of tests/test_pallas.py (B=2, H=2).
+
+Tolerance: float32 throughout; the kernel, the einsum reference and the
+plain version sum in other orders, so outputs agree to 2e-5 absolute and
+relative, the tolerance of tests/test_pallas.py.  The dispatch to the
+plain attention below T=128 gives the same einsum, to 1e-6.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from superconductor_vae_tpu.ops.attention import causal_mask as jax_causal_mask
+from superconductor_vae_tpu.ops.attention import mha_attention as jax_mha
+from superconductor_vae_tpu.ops.pallas_attention import (
+    fused_attention as jax_fused, pallas_attention)
+from superconductor_vae_tpu_torch.ops import fused_attention as port
+from superconductor_vae_tpu_torch.ops.attention import causal_mask, mha_attention
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _qkv(b, t, h, dh, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, t, h, dh)).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize('t,dh', [(128, 64), (256, 72), (128, 128), (100, 72)])
+def test_flash_attention_ref_matches_pallas(t, dh):
+    q, k, v = _qkv(2, t, 2, dh, seed=t + dh)
+    want_pallas = pallas_attention(*map(jnp.asarray, (q, k, v)), causal=True,
+                                   interpret=True)
+    want_xla = jax_mha(*map(jnp.asarray, (q, k, v)), jax_causal_mask(t))
+    before = port.flash_attention.launches
+    got = port.flash_attention(*map(torch.tensor, (q, k, v)))
+    assert port.flash_attention.launches == before      # the CPU runs the plain version
+    assert got.shape == (2, t, 2, dh) and got.dtype == torch.float32
+    for want in (want_pallas, want_xla):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_causal_false_is_still_causal():
+    """Both kernels apply the causal predicate whatever ``causal`` says."""
+    q, k, v = _qkv(2, 128, 2, 64, seed=3)
+    causal = pallas_attention(*map(jnp.asarray, (q, k, v)), causal=True, interpret=True)
+    not_causal = pallas_attention(*map(jnp.asarray, (q, k, v)), causal=False,
+                                  interpret=True)
+    np.testing.assert_array_equal(np.asarray(not_causal), np.asarray(causal))
+    tq, tk, tv = map(torch.tensor, (q, k, v))
+    got = port.flash_attention(tq, tk, tv, causal=False)
+    torch.testing.assert_close(got, port.flash_attention(tq, tk, tv, causal=True),
+                               rtol=0, atol=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(causal), **TOL)
+    full = mha_attention(tq, tk, tv)                   # what a non-causal call would be
+    assert not torch.allclose(got, full, **TOL)
+
+
+def test_dispatch_below_min_len_is_mha():
+    """T=16 < MIN_PALLAS_LEN: the plain attention with the causal mask, in
+    both packages (tests/test_pallas.py::test_dispatch_small_uses_xla)."""
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((2, 16, 2, 32)).astype(np.float32)
+    k, v = q + 1.0, q - 1.0
+    want = jax_fused(*map(jnp.asarray, (q, k, v)), causal=True)
+    tq, tk, tv = map(torch.tensor, (q, k, v))
+    before = port.flash_attention.launches
+    got = port.fused_attention(tq, tk, tv, causal=True)
+    assert port.flash_attention.launches == before
+    torch.testing.assert_close(got, mha_attention(tq, tk, tv, causal_mask(16)),
+                               rtol=0, atol=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    # at T >= 128 on the CPU the dispatcher still takes the plain attention
+    q2, k2, v2 = map(torch.tensor, _qkv(1, 128, 2, 32, seed=5))
+    torch.testing.assert_close(port.fused_attention(q2, k2, v2, causal=True),
+                               mha_attention(q2, k2, v2, causal_mask(128)),
+                               rtol=0, atol=0)
+    # forced, the kernel's branch runs: the plain version on the CPU
+    forced = port.fused_attention(q2, k2, v2, force_pallas=True)
+    torch.testing.assert_close(forced, port.flash_attention_ref(q2, k2, v2),
+                               rtol=0, atol=0)
+
+
+def test_wrapper_refuses_cross_attention_and_grad():
+    q, k, v = map(torch.tensor, _qkv(1, 32, 2, 16, seed=4))
+    with pytest.raises(ValueError, match='self-attention only'):
+        port.flash_attention(q, k[:, :24], v[:, :24])
+    with pytest.raises(ValueError, match='self-attention only'):
+        port.fused_attention(q, k[:, :24], v[:, :24], force_pallas=True)
+    q.requires_grad_()
+    with pytest.raises(RuntimeError, match='no gradient'):
+        port.flash_attention(q, k, v)
+    with torch.no_grad():                               # no gradient asked for
+        out = port.flash_attention(q, k, v)
+    assert not out.requires_grad
