@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds every CUDA kernel of the port with nvcc (ops/_build.py).
+2. Builds every CUDA kernel of the port with nvcc (ops/_build.py), prints
+   each kernel's registers and spills (ptxas) and its tensor-core, ldmatrix
+   and cp.async instructions (cuobjdump -sass), and checks that K2's
+   bfloat16 instances run on mma.sync (HMMA) fed by ldmatrix and cp.async.
 3. Kernel phase: K1, the decode-step attention, against its plain PyTorch
    version at the main path's shapes (B=256, H=8, T=30, Dh=72) at
    positions 0, 14 and 29 in float32 and bfloat16: output and both caches.
@@ -21,12 +24,15 @@
    8 rows also run on the CPU and must agree with the card.
 5. K2 phase: the flash-attention forward against its plain version at the
    JAX tests' shapes ((T, Dh) in (128, 64), (256, 72), (128, 128), T=100
-   at Dh=72) and at B=64, H=8, Dh=72, T=256, in float32 and bfloat16; its
-   times at B=64, H=8, Dh=72, T in {128, 256} beside the plain version's,
-   the bound's and scaled_dot_product_attention's (a yardstick the port
-   never calls); then the dispatch of fused_attention, K2's entry point:
-   K2 at T >= 128 (its launches are the ones reported), the plain
-   attention at T=29, a refusal for inputs that require grad.
+   at Dh=72) and at B=64, H=8, Dh=72, T=256, in float32 and bfloat16, and
+   in bfloat16 over Dh in {64, 72, 80, 96, 128, 200, 256} x T in {1, 17,
+   64, 65, 100, 129, 256} at B*H = 1 and 6; its times at B=64, H=8, Dh=72,
+   T in {128, 256} beside the plain version's, the bound's and
+   scaled_dot_product_attention's (a yardstick the port never calls), with
+   the achieved GB/s and TFLOP/s; then the dispatch of fused_attention,
+   K2's entry point, in each dtype: K2 at T >= 128 (its launches are the
+   ones reported), the plain attention at T=29, a refusal for inputs that
+   require grad.
 6. Train phase: the teacher-forced train step (training/train_step.py) at
    run4's widths with weights from a seed, float32, dropout 0.1, on the
    same 1,024 rows: a warm-up step, then 8 timed steps (train samples/s,
@@ -45,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -112,6 +119,61 @@ def device_ms(torch, fn, arg_sets, iters=60):
     check(enqueue_ms < held.elapsed_time(start),
           'the host did not enqueue ahead of the device; timing invalid')
     return start.elapsed_time(end) / iters, enqueue_ms / iters
+
+
+# -- build --------------------------------------------------------------------
+
+def kernel_label(mangled):
+    """'flash_attention_bf16_kernel<80>' and the like from a mangled
+    (Itanium ABI) kernel name: the last of its length-prefixed names, and
+    its template argument."""
+    i, names = (3 if mangled.startswith('_ZN') else 2), []
+    while m := re.match(r'\d+', mangled[i:]):
+        n, i = int(m.group()), i + len(m.group())
+        names.append(mangled[i:i + n])
+        i += n
+    arg = re.match(r'I(?:Li(\d+)E|(f)|13__nv_(bfloat16))E', mangled[i:])
+    label = names[-1] if names else mangled
+    if not arg:
+        return label
+    t = next(x for x in arg.groups() if x)
+    return f"{label}<{'float' if t == 'f' else t}>"
+
+
+def build_report(libs, nvcc):
+    """Each kernel's registers and spills (ptxas -v, kept beside the
+    library) and, in its SASS, its instructions and among them HMMA
+    (mma.sync), LDSM (ldmatrix), LDGSTS (cp.async) and MUFU (exp2 and the
+    like); K2's bfloat16 instances must have the first three."""
+    for name, path in libs.items():
+        log = path.with_name(path.name + '.log')
+        entry = None
+        for line in (log.read_text().splitlines() if log.exists() else []):
+            if 'Compiling entry function' in line:
+                entry = kernel_label(line.split("'")[1])
+            elif 'registers' in line or 'spill' in line:
+                print(f'build {name}: {entry}: {line.split(":", 1)[-1].strip()}')
+        sass = subprocess.run([str(Path(nvcc).parent / 'cuobjdump'), '-sass', str(path)],
+                              capture_output=True, text=True, check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if 'Function :' in line:
+                fn = kernel_label(line.split('Function :')[1].strip())
+                counts[fn] = dict.fromkeys(('instructions', 'HMMA', 'LDSM', 'LDGSTS', 'MUFU'), 0)
+            elif fn and re.match(r'\s*/\*[0-9a-f]{4,}\*/', line):
+                counts[fn]['instructions'] += 1
+                for op in ('HMMA', 'LDSM', 'LDGSTS', 'MUFU'):
+                    counts[fn][op] += f' {op}.' in line or f' {op} ' in line
+        for fn, c in counts.items():
+            print(f'sass {name}: {fn}: ' + ', '.join(f'{op} {n}' for op, n in c.items()))
+        bf16 = {fn: c for fn, c in counts.items() if 'bf16_kernel' in fn}
+        if name == 'flash_attention':
+            check(len(bf16) == 4, f'expected four bfloat16 instances of K2 (DHP 64, 80, '
+                  f'128, 256), found {sorted(bf16)}')
+        for fn, c in bf16.items():
+            check(c['HMMA'] and c['LDSM'] and c['LDGSTS'],
+                  f'{fn} lacks mma.sync, ldmatrix or cp.async: {c}')
+
 
 
 # -- kernel phase -------------------------------------------------------------
@@ -193,6 +255,12 @@ def kernel_phase(torch, dev):
 K2_CHECKS = [(2, 128, 2, 64), (2, 256, 2, 72), (2, 128, 2, 128), (2, 100, 2, 72),
              (64, 256, 8, 72)]                   # (B, T, H, Dh): JAX tests' shapes + timed
 K2_TIMED = [(64, 128, 8, 72), (64, 256, 8, 72)]
+# bfloat16 only (the float32 kernel takes Dh <= 128): every padded width of
+# the tensor-core kernel (64, 80, 128, 256) and widths between them, T
+# below, at and past the 64-row tiles, one and several (b, h) slices
+K2_BF16_DH = (64, 72, 80, 96, 128, 200, 256)
+K2_BF16_T = (1, 17, 64, 65, 100, 129, 256)
+K2_BF16_BH = ((1, 1), (2, 3))
 # float32: other summation order only (the JAX tests' tolerance); bfloat16:
 # output rounded once to bf16 and the probabilities rounded to bf16 against
 # the running max (kernel) or the final max (plain): two bf16 ulp (2**-6
@@ -221,7 +289,7 @@ def k2_phase(torch, dev):
         return [torch.randn(b, t, h, dh, generator=gen, device=dev).to(dtype)
                 for _ in range(3)]
 
-    max_err = 0.0
+    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
             tol = K2_TOL[str(dtype).split('.')[1]]
@@ -235,8 +303,24 @@ def k2_phase(torch, dev):
                       f'max_abs_err={err:.3e} (tol {tol})')
                 check(torch.allclose(out.float(), ref.float(), **tol),
                       f'K2 disagrees with the plain version ({dtype}, T={t}, Dh={dh})')
-                if dtype == torch.float32:
-                    max_err = max(max_err, err)
+                max_err[dtype] = max(max_err[dtype], err)
+        tol = K2_TOL['bfloat16']
+        for dh in K2_BF16_DH:
+            worst = 0.0
+            for t in K2_BF16_T:
+                for b, h in K2_BF16_BH:
+                    q, k, v = inputs(b, t, h, dh, torch.bfloat16)
+                    out = flash_attention(q, k, v)
+                    ref = flash_attention_ref(q, k, v)
+                    torch.cuda.synchronize()
+                    err = (out.float() - ref.float()).abs().max().item()
+                    check(torch.allclose(out.float(), ref.float(), **tol),
+                          f'K2 disagrees with the plain version (bfloat16, B={b}, T={t}, '
+                          f'H={h}, Dh={dh}): max_abs_err {err:.3e}')
+                    worst = max(worst, err)
+            print(f'K2 check torch.bfloat16  Dh={dh:3d}, T in {K2_BF16_T}, (B, H) in '
+                  f'{K2_BF16_BH}: max_abs_err={worst:.3e} (tol {tol})')
+            max_err[torch.bfloat16] = max(max_err[torch.bfloat16], worst)
 
         rows = {}
         for dtype in (torch.float32, torch.bfloat16):
@@ -259,31 +343,39 @@ def k2_phase(torch, dev):
                       f'{kern * 1e3:.2f} us, plain {plain * 1e3:.2f} us, sdpa '
                       f'{lib * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({by}: '
                       f'{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); kernel / bound '
-                      f'{kern / bound:.2f}; host per call {kern_host * 1e3:.1f} us')
+                      f'{kern / bound:.2f}, kernel / sdpa {kern / lib:.2f}; kernel '
+                      f'{nbytes / kern / 1e6:.1f} GB/s and {ops / kern / 1e9:.2f} TFLOP/s, '
+                      f'sdpa {nbytes / lib / 1e6:.1f} GB/s and {ops / lib / 1e9:.2f} '
+                      f'TFLOP/s; host per call {kern_host * 1e3:.1f} us')
                 rows[(dtype, t)] = dict(ms=kern, plain_ms=plain, bound_ms=bound,
                                         bound_by=by, library_ms=lib)
                 del sets
         torch.cuda.empty_cache()
 
-        # the entry point: fused_attention dispatches to K2 for causal
-        # self-attention at T >= 128 on the card, and to the plain attention
-        # below that (the model's T = 29)
-        flash_attention.launches = 0
-        for b, t, h, dh in K2_TIMED:
-            q, k, v = inputs(b, t, h, dh, torch.float32)
+        # the entry point, in each dtype: fused_attention dispatches to K2
+        # for causal self-attention at T >= 128 on the card, and to the
+        # plain attention below that (the model's T = 29); the counts are
+        # set to 0 just before and read just after
+        launches = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            flash_attention.launches = 0
+            for b, t, h, dh in K2_TIMED:
+                q, k, v = inputs(b, t, h, dh, dtype)
+                out = fused_attention(q, k, v, causal=True)
+                want = flash_attention_ref(q, k, v)
+                check(out.dtype == dtype and torch.allclose(
+                          out.float(), want.float(), **K2_TOL[str(dtype).split('.')[1]]),
+                      f'fused_attention at T={t} disagrees with the plain version ({dtype})')
+            n = flash_attention.launches
+            check(n == len(K2_TIMED), f'fused_attention launched K2 {n} times for '
+                  f'{len(K2_TIMED)} calls at T >= 128 ({dtype})')
+            q, k, v = inputs(256, 29, 8, 72, dtype)
             out = fused_attention(q, k, v, causal=True)
-            want = flash_attention_ref(q, k, v)
-            check(torch.allclose(out, want, **K2_TOL['float32']),
-                  f'fused_attention at T={t} disagrees with the plain version')
-        launches = flash_attention.launches
-        check(launches == len(K2_TIMED), f'fused_attention launched K2 {launches} '
-              f'times for {len(K2_TIMED)} calls at T >= 128')
-        q, k, v = inputs(256, 29, 8, 72, torch.float32)
-        out = fused_attention(q, k, v, causal=True)
-        check(flash_attention.launches == launches,
-              'fused_attention launched K2 at T=29')
-        check(torch.equal(out, mha_attention(q, k, v, causal_mask(29, device=dev))),
-              'fused_attention at T=29 is not mha_attention with the causal mask')
+            check(flash_attention.launches == n, f'fused_attention launched K2 at T=29 ({dtype})')
+            check(torch.equal(out, mha_attention(q, k, v, causal_mask(29, device=dev))),
+                  'fused_attention at T=29 is not mha_attention with the causal mask')
+            launches[dtype] = n
+    n = flash_attention.launches
     q, k, v = (x.requires_grad_() for x in inputs(2, 128, 2, 72, torch.float32))
     try:
         fused_attention(q, k, v, causal=True)
@@ -291,9 +383,10 @@ def k2_phase(torch, dev):
     except RuntimeError:
         raised = True
     check(raised, 'K2 did not refuse inputs that require grad')
-    check(flash_attention.launches == launches, 'K2 launched on inputs that require grad')
-    print(f'K2 dispatch: {launches} launches through fused_attention at T >= 128, '
-          f'none at T=29, refused under grad')
+    check(flash_attention.launches == n, 'K2 launched on inputs that require grad')
+    print(f'K2 dispatch: {launches[torch.float32]} float32 and {launches[torch.bfloat16]} '
+          f'bfloat16 launches through fused_attention at T >= 128, none at T=29, '
+          f'refused under grad')
     return rows, max_err, launches
 
 
@@ -682,11 +775,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build('decode_attention', 'flash_attention')   # one nvcc each, together
     print(f'build: {time.perf_counter() - t0:.1f} s')
-    for name, path in libs.items():
-        log = path.with_name(path.name + '.log')
-        for line in (log.read_text().splitlines() if log.exists() else []):
-            if 'registers' in line or 'spill' in line:
-                print(f'build {name}: {line.strip()}')
+    build_report(libs, _build.nvcc())
 
     k1, k1_err = kernel_phase(torch, dev)
     launches, batches = e2e_phase(torch, dev)
@@ -694,8 +783,10 @@ def main() -> int:
     train_phase(torch, dev, batches)
 
     print(f'total: {time.perf_counter() - t_start:.1f} s')
-    print(f'kernels: ["K1 decode_step_attention", "K2 flash_attention"] launches: '
-          f'{{"K1 decode_step_attention": {launches}, "K2 flash_attention": {k2_launches}}}')
+    print(f'kernels: ["K1 decode_step_attention", "K2 flash_attention", "K2 flash_attention '
+          f'bf16"] launches: {{"K1 decode_step_attention": {launches}, "K2 flash_attention": '
+          f'{k2_launches[torch.float32]}, "K2 flash_attention bf16": '
+          f'{k2_launches[torch.bfloat16]}}}')
     print(json.dumps({'kernels': [{
         'name': 'K1 decode_step_attention', 'route': 'cuda',
         'source': 'superconductor_vae_tpu_torch/csrc/decode_attention.cu',
@@ -706,8 +797,14 @@ def main() -> int:
         'name': 'K2 flash_attention', 'route': 'cuda',
         'source': 'superconductor_vae_tpu_torch/csrc/flash_attention.cu',
         'replaces': 'superconductor_vae_tpu/ops/pallas_attention.py:73',
-        'launches': k2_launches, 'max_abs_err': k2_err,
+        'launches': k2_launches[torch.float32], 'max_abs_err': k2_err[torch.float32],
         **k2_rows[(torch.float32, 128)],
+    }, {
+        'name': 'K2 flash_attention bf16', 'route': 'cuda',
+        'source': 'superconductor_vae_tpu_torch/csrc/flash_attention.cu',
+        'replaces': 'superconductor_vae_tpu/ops/pallas_attention.py:73',
+        'launches': k2_launches[torch.bfloat16], 'max_abs_err': k2_err[torch.bfloat16],
+        **k2_rows[(torch.bfloat16, 128)],
     }]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

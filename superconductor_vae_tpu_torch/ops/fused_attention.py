@@ -3,6 +3,11 @@
 Port of ops/pallas_attention.py: the Pallas TPU kernel ``pallas_attention``
 becomes the CUDA kernel in ``csrc/flash_attention.cu`` (its note gives the
 design and the bound), built by ``nvcc`` and called through ``ctypes``.
+The work is bound by its bytes (q, k, v read once, out written once) at
+the shapes the port times.  In bfloat16 the kernel runs both products on
+the tensor cores (``mma.sync``) and streams K/V through a two-stage
+``cp.async`` ring, and takes any Dh that is a multiple of 8 up to 256; the
+float32 instance is a SIMT kernel and takes Dh up to 128.
 
 ``flash_attention`` computes softmax attention over ``[B, T, H, Dh]`` with
 float32 accumulation, a 1/sqrt(Dh) scale and a causal mask.  As in the TPU
@@ -30,7 +35,7 @@ from ._build import load
 from .attention import causal_mask, mha_attention
 
 MIN_PALLAS_LEN = 128   # below this the plain attention runs (as in the JAX policy)
-MAX_DH = 128
+MAX_DH = {torch.float32: 128, torch.bfloat16: 256}   # the kernel's Dh caps
 _NEG_INF = -1e30
 _SUFFIX = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
 
@@ -79,9 +84,9 @@ def _check(q, k, v):
         raise ValueError(f'flash_attention: empty input {tuple(q.shape)}')
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError('flash_attention: tensors must be contiguous')
-    if dh > MAX_DH or (dh * q.element_size()) % 16:
-        raise ValueError(f'flash_attention: Dh={dh} must be <= {MAX_DH} and '
-                         'a whole number of 16-byte vectors')
+    if dh > MAX_DH[q.dtype] or (dh * q.element_size()) % 16:
+        raise ValueError(f'flash_attention: Dh={dh} must be <= {MAX_DH[q.dtype]} '
+                         f'in {q.dtype} and a whole number of 16-byte vectors')
     if any(x.data_ptr() % 16 for x in tensors):
         raise ValueError('flash_attention: tensors must be 16-byte aligned')
 

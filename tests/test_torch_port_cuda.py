@@ -76,10 +76,17 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         decode_step_attention(*odd, cache, cache.clone(), 0)
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('b,t,h,dh', [(2, 128, 2, 64), (2, 256, 2, 72), (2, 128, 2, 128),
-                                      (2, 100, 2, 72), (1, 1, 1, 8), (3, 65, 8, 72),
-                                      (64, 256, 8, 72)])
+K2_SHAPES = [(2, 128, 2, 64), (2, 256, 2, 72), (2, 128, 2, 128), (2, 100, 2, 72),
+             (1, 1, 1, 8), (3, 65, 8, 72), (64, 256, 8, 72)]
+# bfloat16 only: the tensor-core kernel's other padded widths (64, 80, 128,
+# 256 in shared memory) and Dh past the float32 cap of 128, ragged T, B*H=1
+K2_BF16_SHAPES = [(1, 17, 1, 96), (2, 129, 3, 80), (1, 256, 1, 256), (2, 100, 2, 200),
+                  (2, 64, 2, 136), (1, 5, 1, 256)]
+
+
+@pytest.mark.parametrize('dtype,b,t,h,dh',
+                         [(torch.float32, *s) for s in K2_SHAPES]
+                         + [(torch.bfloat16, *s) for s in K2_SHAPES + K2_BF16_SHAPES])
 def test_flash_attention_matches_plain_version(cuda, dtype, b, t, h, dh):
     g = torch.Generator(device=cuda).manual_seed(t)
     q, k, v = (torch.randn(b, t, h, dh, generator=g, device=cuda).to(dtype)
@@ -111,8 +118,11 @@ def test_flash_attention_dispatch_and_refusals(cuda):
         flash_attention(q, k[:, :64], v[:, :64])
     with pytest.raises(ValueError):                             # not contiguous
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
-    with pytest.raises(ValueError):                             # Dh > 128
+    with pytest.raises(ValueError):                             # Dh > 128 in float32
         big = torch.zeros(1, 8, 1, 136, device=cuda)
+        flash_attention(big, big, big)
+    with pytest.raises(ValueError):                             # Dh > 256 in bfloat16
+        big = torch.zeros(1, 8, 1, 264, device=cuda, dtype=torch.bfloat16)
         flash_attention(big, big, big)
     with pytest.raises(TypeError):                              # mixed dtypes
         flash_attention(q.bfloat16(), k, v)

@@ -5,7 +5,13 @@ XLA reference, at the shapes of tests/test_pallas.py (B=2, H=2).
 Tolerance: float32 throughout; the kernel, the einsum reference and the
 plain version sum in other orders, so outputs agree to 2e-5 absolute and
 relative, the tolerance of tests/test_pallas.py.  The dispatch to the
-plain attention below T=128 gives the same einsum, to 1e-6.
+plain attention below T=128 gives the same einsum, to 1e-6.  In bfloat16
+(Dh up to 256, which only the port's bfloat16 kernel takes) both round the
+probabilities to bf16 before P.V, against the running max of 128-key tiles
+(Pallas) or the final max (plain), and round the output once: two bf16 ulp
+(2**-6 relative) plus 2e-3 absolute, chip_smoke.py's K2_TOL['bfloat16'];
+the largest difference seen on the CPU is 3.9e-3 at T=256, Dh=200 (0.37
+of the tolerance there).
 """
 
 import jax.numpy as jnp
@@ -21,6 +27,7 @@ from superconductor_vae_tpu_torch.ops import fused_attention as port
 from superconductor_vae_tpu_torch.ops.attention import causal_mask, mha_attention
 
 TOL = dict(rtol=2e-5, atol=2e-5)
+BF16_TOL = dict(rtol=2 ** -6, atol=2e-3)
 
 
 def _qkv(b, t, h, dh, seed):
@@ -95,3 +102,31 @@ def test_wrapper_refuses_cross_attention_and_grad():
     with torch.no_grad():                               # no gradient asked for
         out = port.flash_attention(q, k, v)
     assert not out.requires_grad
+
+
+@pytest.mark.parametrize('t,dh', [(128, 256), (100, 72), (256, 200)])
+def test_flash_attention_ref_matches_pallas_bf16(t, dh):
+    """bfloat16, up to the bfloat16 kernel's Dh cap of 256 (the Pallas
+    kernel pads Dh to 256 for 200)."""
+    q, k, v = (x.astype(jnp.bfloat16) for x in map(jnp.asarray, _qkv(2, t, 2, dh, seed=t + dh)))
+    want = pallas_attention(q, k, v, causal=True, interpret=True).astype(jnp.float32)
+    before = port.flash_attention.launches
+    got = port.flash_attention(*(torch.tensor(np.asarray(x.astype(jnp.float32))).bfloat16()
+                                 for x in (q, k, v)))
+    assert port.flash_attention.launches == before
+    assert got.shape == (2, t, 2, dh) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want), **BF16_TOL)
+
+
+def test_check_caps_dh_per_dtype():
+    """The kernel's input check: Dh up to 256 in bfloat16 and 128 in
+    float32, always a whole number of 16-byte vectors."""
+    def qkv(dh, dtype):
+        return [torch.zeros(1, 4, 2, dh, dtype=dtype) for _ in range(3)]
+    for dh in (8, 72, 256):
+        port._check(*qkv(dh, torch.bfloat16))
+    port._check(*qkv(128, torch.float32))
+    for dh, dtype in ((264, torch.bfloat16), (136, torch.float32),
+                      (12, torch.bfloat16), (6, torch.float32)):
+        with pytest.raises(ValueError, match='16-byte vectors'):
+            port._check(*qkv(dh, dtype))
