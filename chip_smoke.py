@@ -7,7 +7,8 @@
 2. Builds every CUDA kernel of the port with nvcc (ops/_build.py), prints
    each kernel's registers and spills (ptxas) and its tensor-core, ldmatrix
    and cp.async instructions (cuobjdump -sass), and checks that K2's
-   bfloat16 instances run on mma.sync (HMMA) fed by ldmatrix and cp.async.
+   bfloat16 instances run on mma.sync (HMMA) fed by ldmatrix and cp.async,
+   and its float32 instances on mma.sync fed by cp.async.
 3. Kernel phase: K1, the decode-step attention, against its plain PyTorch
    version at the main path's shapes (B=256, H=8, T=30, Dh=72) at
    positions 0, 14 and 29 in float32 and bfloat16: output and both caches.
@@ -25,11 +26,13 @@
 5. K2 phase: the flash-attention forward against its plain version at the
    JAX tests' shapes ((T, Dh) in (128, 64), (256, 72), (128, 128), T=100
    at Dh=72) and at B=64, H=8, Dh=72, T=256, in float32 and bfloat16, and
-   in bfloat16 over Dh in {64, 72, 80, 96, 128, 200, 256} x T in {1, 17,
-   64, 65, 100, 129, 256} at B*H = 1 and 6; its times at B=64, H=8, Dh=72,
+   in both over Dh in {64, 72, 80, 96, 128, 200, 256} and a ragged Dh (66
+   in float32, 70 in bfloat16, padded by the wrapper) x T in {1, 17, 64,
+   65, 100, 129, 256} at B*H = 1 and 6; its times at B=64, H=8, Dh=72,
    T in {128, 256} beside the plain version's, the bound's and
-   scaled_dot_product_attention's (a yardstick the port never calls), with
-   the achieved GB/s and TFLOP/s; then the dispatch of fused_attention,
+   scaled_dot_product_attention's (a yardstick the port never calls, whose
+   float32 device kernel is named from one profiled call), with the
+   achieved GB/s and TFLOP/s; then the dispatch of fused_attention,
    K2's entry point, in each dtype: K2 at T >= 128 (its launches are the
    ones reported), the plain attention at T=29, a refusal for inputs that
    require grad.
@@ -69,6 +72,7 @@ TIE = 1e-4                        # top-two logit gap under which argmax may fli
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12          # tensor cores, dense
+TF32_FLOP_PER_S = 495e12          # tensor cores, dense; 3xTF32 takes three a float32 FLOP
 
 
 def check(cond, msg):
@@ -144,7 +148,8 @@ def build_report(libs, nvcc):
     """Each kernel's registers and spills (ptxas -v, kept beside the
     library) and, in its SASS, its instructions and among them HMMA
     (mma.sync), LDSM (ldmatrix), LDGSTS (cp.async) and MUFU (exp2 and the
-    like); K2's bfloat16 instances must have the first three."""
+    like); K2's bfloat16 instances must have the first three, its float32
+    instances HMMA and LDGSTS."""
     for name, path in libs.items():
         log = path.with_name(path.name + '.log')
         entry = None
@@ -167,12 +172,17 @@ def build_report(libs, nvcc):
         for fn, c in counts.items():
             print(f'sass {name}: {fn}: ' + ', '.join(f'{op} {n}' for op, n in c.items()))
         bf16 = {fn: c for fn, c in counts.items() if 'bf16_kernel' in fn}
+        f32 = {fn: c for fn, c in counts.items() if 'f32_kernel' in fn}
         if name == 'flash_attention':
             check(len(bf16) == 4, f'expected four bfloat16 instances of K2 (DHP 64, 80, '
                   f'128, 256), found {sorted(bf16)}')
+            check(len(f32) == 4, f'expected four float32 instances of K2 (DHP 64, 72, '
+                  f'128, 256), found {sorted(f32)}')
         for fn, c in bf16.items():
             check(c['HMMA'] and c['LDSM'] and c['LDGSTS'],
                   f'{fn} lacks mma.sync, ldmatrix or cp.async: {c}')
+        for fn, c in f32.items():
+            check(c['HMMA'] and c['LDGSTS'], f'{fn} lacks mma.sync or cp.async: {c}')
 
 
 
@@ -255,12 +265,14 @@ def kernel_phase(torch, dev):
 K2_CHECKS = [(2, 128, 2, 64), (2, 256, 2, 72), (2, 128, 2, 128), (2, 100, 2, 72),
              (64, 256, 8, 72)]                   # (B, T, H, Dh): JAX tests' shapes + timed
 K2_TIMED = [(64, 128, 8, 72), (64, 256, 8, 72)]
-# bfloat16 only (the float32 kernel takes Dh <= 128): every padded width of
-# the tensor-core kernel (64, 80, 128, 256) and widths between them, T
-# below, at and past the 64-row tiles, one and several (b, h) slices
-K2_BF16_DH = (64, 72, 80, 96, 128, 200, 256)
-K2_BF16_T = (1, 17, 64, 65, 100, 129, 256)
-K2_BF16_BH = ((1, 1), (2, 3))
+# both dtypes: every padded width of the kernel (float32 64, 72, 128, 256;
+# bfloat16 64, 80, 128, 256) and widths between them, plus a Dh that is not
+# a whole number of 16-byte vectors (the wrapper pads it); T below, at and
+# past the 64-row tiles; one and several (b, h) slices
+K2_SWEEP_DH = (64, 72, 80, 96, 128, 200, 256)
+K2_RAGGED_DH = {'float32': 66, 'bfloat16': 70}
+K2_SWEEP_T = (1, 17, 64, 65, 100, 129, 256)
+K2_SWEEP_BH = ((1, 1), (2, 3))
 # float32: other summation order only (the JAX tests' tolerance); bfloat16:
 # output rounded once to bf16 and the probabilities rounded to bf16 against
 # the running max (kernel) or the final max (plain): two bf16 ulp (2**-6
@@ -272,6 +284,31 @@ def k2_bytes_ops(b, t, h, dh, itemsize):
     """K2's least traffic and work: q, k, v read once, out written once;
     a q.k and a p.v product for each of the T(T+1)/2 causal pairs."""
     return 4 * b * t * h * dh * itemsize, 4 * dh * b * h * t * (t + 1) // 2
+
+
+def k2_bound(nbytes, ops, dtype_name):
+    """(bound in ms, 'bytes' or 'operations') on the tensor cores: bfloat16
+    at its rate; float32 as 3xTF32, three TF32 FLOPs a float32 FLOP."""
+    op_s = 3 * ops / TF32_FLOP_PER_S if dtype_name == 'float32' else ops / BF16_FLOP_PER_S
+    by_s = nbytes / HBM_BYTES_PER_S
+    return max(by_s, op_s) * 1e3, 'bytes' if by_s >= op_s else 'operations'
+
+
+def device_kernel_names(torch, fn, args):
+    """The device kernels of one call of ``fn`` under torch.profiler.  A
+    session can come back without device activity (seen on the card in the
+    K2 phase, not in a fresh process), so up to three are tried."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+        if names:
+            return names
+    return ['not recorded by the profiler']
 
 
 def k2_phase(torch, dev):
@@ -304,23 +341,26 @@ def k2_phase(torch, dev):
                 check(torch.allclose(out.float(), ref.float(), **tol),
                       f'K2 disagrees with the plain version ({dtype}, T={t}, Dh={dh})')
                 max_err[dtype] = max(max_err[dtype], err)
-        tol = K2_TOL['bfloat16']
-        for dh in K2_BF16_DH:
-            worst = 0.0
-            for t in K2_BF16_T:
-                for b, h in K2_BF16_BH:
-                    q, k, v = inputs(b, t, h, dh, torch.bfloat16)
-                    out = flash_attention(q, k, v)
-                    ref = flash_attention_ref(q, k, v)
-                    torch.cuda.synchronize()
-                    err = (out.float() - ref.float()).abs().max().item()
-                    check(torch.allclose(out.float(), ref.float(), **tol),
-                          f'K2 disagrees with the plain version (bfloat16, B={b}, T={t}, '
-                          f'H={h}, Dh={dh}): max_abs_err {err:.3e}')
-                    worst = max(worst, err)
-            print(f'K2 check torch.bfloat16  Dh={dh:3d}, T in {K2_BF16_T}, (B, H) in '
-                  f'{K2_BF16_BH}: max_abs_err={worst:.3e} (tol {tol})')
-            max_err[torch.bfloat16] = max(max_err[torch.bfloat16], worst)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split('.')[1]
+            tol = K2_TOL[name]
+            for dh in K2_SWEEP_DH + (K2_RAGGED_DH[name],):
+                worst = 0.0
+                for t in K2_SWEEP_T:
+                    for b, h in K2_SWEEP_BH:
+                        q, k, v = inputs(b, t, h, dh, dtype)
+                        out = flash_attention(q, k, v)
+                        ref = flash_attention_ref(q, k, v)
+                        torch.cuda.synchronize()
+                        err = (out.float() - ref.float()).abs().max().item()
+                        check(out.shape == q.shape and torch.allclose(
+                                  out.float(), ref.float(), **tol),
+                              f'K2 disagrees with the plain version ({name}, B={b}, T={t}, '
+                              f'H={h}, Dh={dh}): max_abs_err {err:.3e}')
+                        worst = max(worst, err)
+                print(f'K2 check {str(dtype):15s} Dh={dh:3d}, T in {K2_SWEEP_T}, (B, H) in '
+                      f'{K2_SWEEP_BH}: max_abs_err={worst:.3e} (tol {tol})')
+                max_err[dtype] = max(max_err[dtype], worst)
 
         rows = {}
         for dtype in (torch.float32, torch.bfloat16):
@@ -335,18 +375,23 @@ def k2_phase(torch, dev):
                         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                         is_causal=True)
                 lib, _ = device_ms(torch, sdpa, sets, iters=20)
+                if dtype == torch.float32 and t == K2_TIMED[0][1]:
+                    print(f'K2 sdpa float32 runs: {device_kernel_names(torch, sdpa, sets[0])}')
                 nbytes, ops = k2_bytes_ops(b, t, h, dh, sets[0][0].element_size())
-                peak = F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
-                bound = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
-                by = 'bytes' if nbytes / HBM_BYTES_PER_S >= ops / peak else 'operations'
+                bound, by = k2_bound(nbytes, ops, str(dtype).split('.')[1])
+                fma = ''
+                if dtype == torch.float32:   # beside it, the bound on the CUDA cores' FMA rate
+                    fma_bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S) * 1e3
+                    fma = (f'; bound on the float32 FMA rate {fma_bound * 1e3:.2f} us, '
+                           f'kernel / that {kern / fma_bound:.2f}')
                 print(f'K2 time {str(dtype):15s} B={b} T={t} H={h} Dh={dh}: kernel '
                       f'{kern * 1e3:.2f} us, plain {plain * 1e3:.2f} us, sdpa '
                       f'{lib * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({by}: '
-                      f'{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); kernel / bound '
-                      f'{kern / bound:.2f}, kernel / sdpa {kern / lib:.2f}; kernel '
-                      f'{nbytes / kern / 1e6:.1f} GB/s and {ops / kern / 1e9:.2f} TFLOP/s, '
+                      f'{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP, tensor cores); '
+                      f'kernel / bound {kern / bound:.2f}, kernel / sdpa {kern / lib:.2f}; '
+                      f'kernel {nbytes / kern / 1e6:.1f} GB/s and {ops / kern / 1e9:.2f} TFLOP/s, '
                       f'sdpa {nbytes / lib / 1e6:.1f} GB/s and {ops / lib / 1e9:.2f} '
-                      f'TFLOP/s; host per call {kern_host * 1e3:.1f} us')
+                      f'TFLOP/s; host per call {kern_host * 1e3:.1f} us{fma}')
                 rows[(dtype, t)] = dict(ms=kern, plain_ms=plain, bound_ms=bound,
                                         bound_by=by, library_ms=lib)
                 del sets

@@ -4,10 +4,13 @@ Port of ops/pallas_attention.py: the Pallas TPU kernel ``pallas_attention``
 becomes the CUDA kernel in ``csrc/flash_attention.cu`` (its note gives the
 design and the bound), built by ``nvcc`` and called through ``ctypes``.
 The work is bound by its bytes (q, k, v read once, out written once) at
-the shapes the port times.  In bfloat16 the kernel runs both products on
-the tensor cores (``mma.sync``) and streams K/V through a two-stage
-``cp.async`` ring, and takes any Dh that is a multiple of 8 up to 256; the
-float32 instance is a SIMT kernel and takes Dh up to 128.
+the shapes the port times.  In both dtypes the kernel runs both products
+on the tensor cores (``mma.sync``: bf16, or float32 as three TF32 products
+of split operands, 3xTF32) and streams K/V through a two-stage
+``cp.async`` ring; it takes Dh up to 256.  A Dh that is not a whole number
+of 16-byte vectors (float32: Dh % 4, bf16: Dh % 8) is zero-padded to the
+next one in the wrapper, scaled by 1/sqrt(real Dh) and sliced back, as
+the TPU kernel pads Dh to 128 lanes (``run_padded``).
 
 ``flash_attention`` computes softmax attention over ``[B, T, H, Dh]`` with
 float32 accumulation, a 1/sqrt(Dh) scale and a causal mask.  As in the TPU
@@ -35,20 +38,22 @@ from ._build import load
 from .attention import causal_mask, mha_attention
 
 MIN_PALLAS_LEN = 128   # below this the plain attention runs (as in the JAX policy)
-MAX_DH = {torch.float32: 128, torch.bfloat16: 256}   # the kernel's Dh caps
+MAX_DH = {torch.float32: 256, torch.bfloat16: 256}   # the kernel's Dh caps
 _NEG_INF = -1e30
 _SUFFIX = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
-                        v: torch.Tensor) -> torch.Tensor:
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float | None = None) -> torch.Tensor:
     """Plain PyTorch version: causal masked softmax in float32, masked
     scores -1e30, probabilities cast to the input dtype before the P.V
-    product (as the kernel does), division by max(l, 1e-30).
+    product (as the kernel does), division by max(l, 1e-30).  ``scale``
+    multiplies the scores; by default 1/sqrt(Dh).
 
     q, k, v: [B, T, H, Dh] -> [B, T, H, Dh] in q's dtype."""
     t = q.shape[1]
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum('bqhd,bkhd->bhqk', q.float(), k.float()) * scale
     keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
     s = s.masked_fill(~keep, _NEG_INF)
@@ -58,9 +63,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
     return o.transpose(1, 2).contiguous().to(q.dtype)
 
 
-@functools.cache
-def _launchers():
-    lib = load('flash_attention')
+def bind(lib: ctypes.CDLL) -> dict:
+    """{dtype: C entry point} of a library built from csrc/flash_attention.cu."""
     fns = {}
     for dt, suffix in _SUFFIX.items():
         fn = getattr(lib, f'sc_flash_attention_{suffix}')
@@ -69,6 +73,11 @@ def _launchers():
         fn.restype = ctypes.c_int
         fns[dt] = fn
     return fns
+
+
+@functools.cache
+def _launchers():
+    return bind(load('flash_attention'))
 
 
 def _check(q, k, v):
@@ -91,6 +100,37 @@ def _check(q, k, v):
         raise ValueError('flash_attention: tensors must be 16-byte aligned')
 
 
+def run_padded(attn, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> torch.Tensor:
+    """``attn(q, k, v, scale)`` with Dh zero-padded to a whole number of
+    16-byte vectors and ``scale`` = 1/sqrt(real Dh); the output sliced back
+    to Dh.  Zero columns change neither q.k nor the real output columns."""
+    dh = q.shape[-1]
+    vec = 16 // q.element_size()
+    pad = -dh % vec
+    scale = 1.0 / math.sqrt(dh)
+    if not pad:
+        return attn(q, k, v, scale)
+    q, k, v = (torch.nn.functional.pad(x, (0, pad)) for x in (q, k, v))
+    return attn(q, k, v, scale)[..., :dh].contiguous()
+
+
+def _launch(q, k, v, scale):
+    """One launch of the kernel on q's current stream."""
+    _check(q, k, v)
+    b, t, h, dh = q.shape
+    out = torch.empty_like(q)
+    fn = _launchers()[q.dtype]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, t, h, dh, scale, stream)
+    if err:
+        raise RuntimeError(f'flash_attention: launch failed with cudaError_t {err}')
+    flash_attention.launches += 1
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
     """Causal attention of q over k, v ([B, T, H, Dh], one T) ->
@@ -99,10 +139,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take ``flash_attention_ref``.  CUDA tensors launch the
     kernel on the current stream (counted in ``flash_attention.launches``)
-    or raise: unsupported inputs and a failed launch are errors.  Raises
-    when a gradient would be needed (the kernel has no backward) and when
-    q and k differ in length (the TPU kernel would attend to padded keys
-    there)."""
+    or raise: unsupported inputs and a failed launch are errors.  A ragged
+    Dh is padded (``run_padded``).  Raises when a gradient would be needed
+    (the kernel has no backward) and when q and k differ in length (the
+    TPU kernel would attend to padded keys there)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError('flash_attention: the kernel has no gradient; call '
                            'it under torch.no_grad() or on tensors that do not '
@@ -116,18 +156,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_ref(q, k, v)
     if q.device.type != 'cuda':
         raise ValueError(f'flash_attention: no kernel for {q.device}')
-    _check(q, k, v)
-    b, t, h, dh = q.shape
-    out = torch.empty_like(q)
-    fn = _launchers()[q.dtype]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, t, h, dh, 1.0 / math.sqrt(dh), stream)
-    if err:
-        raise RuntimeError(f'flash_attention: launch failed with cudaError_t {err}')
-    flash_attention.launches += 1
-    return out
+    return run_padded(_launch, q, k, v)
 
 
 flash_attention.launches = 0

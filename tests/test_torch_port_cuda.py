@@ -13,7 +13,8 @@ absolute, since both round a float32 result once.  Cache rows are copies
 and must be equal exactly.  K2 float32 2e-5 (the JAX tests' tolerance);
 bfloat16 two bf16 ulp (2**-6 relative) plus 2e-3 absolute: the output is
 rounded once, and the probabilities are rounded to bf16 against the
-running max in the kernel and the final max in the plain version.  The
+running max in the kernel and the final max in the plain version.  A
+ragged Dh is padded by the wrapper and held to the same tolerances.  The
 train step's metrics 1e-4 relative (float32, other summation orders).
 """
 
@@ -78,15 +79,19 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
 
 K2_SHAPES = [(2, 128, 2, 64), (2, 256, 2, 72), (2, 128, 2, 128), (2, 100, 2, 72),
              (1, 1, 1, 8), (3, 65, 8, 72), (64, 256, 8, 72)]
-# bfloat16 only: the tensor-core kernel's other padded widths (64, 80, 128,
-# 256 in shared memory) and Dh past the float32 cap of 128, ragged T, B*H=1
-K2_BF16_SHAPES = [(1, 17, 1, 96), (2, 129, 3, 80), (1, 256, 1, 256), (2, 100, 2, 200),
+# the kernels' other padded widths (float32 64, 72, 128, 256 and bfloat16
+# 64, 80, 128, 256 in shared memory) and Dh past 128, ragged T, B*H=1
+K2_WIDE_SHAPES = [(1, 17, 1, 96), (2, 129, 3, 80), (1, 256, 1, 256), (2, 100, 2, 200),
                   (2, 64, 2, 136), (1, 5, 1, 256)]
+# Dh that is not a whole number of 16-byte vectors: the wrapper pads it
+K2_RAGGED = {torch.float32: (2, 130, 2, 66), torch.bfloat16: (2, 130, 2, 70)}
 
 
 @pytest.mark.parametrize('dtype,b,t,h,dh',
                          [(torch.float32, *s) for s in K2_SHAPES]
-                         + [(torch.bfloat16, *s) for s in K2_SHAPES + K2_BF16_SHAPES])
+                         + [(torch.bfloat16, *s) for s in K2_SHAPES + K2_WIDE_SHAPES]
+                         + [(torch.float32, *s) for s in K2_WIDE_SHAPES]
+                         + [(dt, *s) for dt, s in K2_RAGGED.items()])
 def test_flash_attention_matches_plain_version(cuda, dtype, b, t, h, dh):
     g = torch.Generator(device=cuda).manual_seed(t)
     q, k, v = (torch.randn(b, t, h, dh, generator=g, device=cuda).to(dtype)
@@ -118,8 +123,8 @@ def test_flash_attention_dispatch_and_refusals(cuda):
         flash_attention(q, k[:, :64], v[:, :64])
     with pytest.raises(ValueError):                             # not contiguous
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
-    with pytest.raises(ValueError):                             # Dh > 128 in float32
-        big = torch.zeros(1, 8, 1, 136, device=cuda)
+    with pytest.raises(ValueError):                             # Dh > 256 in float32
+        big = torch.zeros(1, 8, 1, 260, device=cuda)
         flash_attention(big, big, big)
     with pytest.raises(ValueError):                             # Dh > 256 in bfloat16
         big = torch.zeros(1, 8, 1, 264, device=cuda, dtype=torch.bfloat16)

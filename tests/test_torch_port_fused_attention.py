@@ -5,9 +5,10 @@ XLA reference, at the shapes of tests/test_pallas.py (B=2, H=2).
 Tolerance: float32 throughout; the kernel, the einsum reference and the
 plain version sum in other orders, so outputs agree to 2e-5 absolute and
 relative, the tolerance of tests/test_pallas.py.  The dispatch to the
-plain attention below T=128 gives the same einsum, to 1e-6.  In bfloat16
-(Dh up to 256, which only the port's bfloat16 kernel takes) both round the
-probabilities to bf16 before P.V, against the running max of 128-key tiles
+plain attention below T=128 gives the same einsum, to 1e-6, and so does
+the zero padding of a ragged Dh (the einsum sums zeros more).  In bfloat16
+(Dh up to 256, as in float32) both round the probabilities to bf16 before
+P.V, against the running max of 128-key tiles
 (Pallas) or the final max (plain), and round the output once: two bf16 ulp
 (2**-6 relative) plus 2e-3 absolute, chip_smoke.py's K2_TOL['bfloat16'];
 the largest difference seen on the CPU is 3.9e-3 at T=256, Dh=200 (0.37
@@ -35,8 +36,11 @@ def _qkv(b, t, h, dh, seed):
     return [rng.standard_normal((b, t, h, dh)).astype(np.float32) for _ in range(3)]
 
 
-@pytest.mark.parametrize('t,dh', [(128, 64), (256, 72), (128, 128), (100, 72)])
+@pytest.mark.parametrize('t,dh', [(128, 64), (256, 72), (128, 128), (100, 72),
+                                  (128, 200), (256, 200), (128, 256), (256, 256)])
 def test_flash_attention_ref_matches_pallas(t, dh):
+    """float32 up to the kernel's Dh cap of 256 (the Pallas kernel pads 200
+    to 256)."""
     q, k, v = _qkv(2, t, 2, dh, seed=t + dh)
     want_pallas = pallas_attention(*map(jnp.asarray, (q, k, v)), causal=True,
                                    interpret=True)
@@ -119,14 +123,38 @@ def test_flash_attention_ref_matches_pallas_bf16(t, dh):
 
 
 def test_check_caps_dh_per_dtype():
-    """The kernel's input check: Dh up to 256 in bfloat16 and 128 in
-    float32, always a whole number of 16-byte vectors."""
+    """The kernel's input check: Dh up to 256 in both dtypes, always a whole
+    number of 16-byte vectors (the wrapper pads a ragged Dh first)."""
     def qkv(dh, dtype):
         return [torch.zeros(1, 4, 2, dh, dtype=dtype) for _ in range(3)]
     for dh in (8, 72, 256):
         port._check(*qkv(dh, torch.bfloat16))
-    port._check(*qkv(128, torch.float32))
-    for dh, dtype in ((264, torch.bfloat16), (136, torch.float32),
+    for dh in (4, 72, 128, 136, 256):
+        port._check(*qkv(dh, torch.float32))
+    for dh, dtype in ((264, torch.bfloat16), (260, torch.float32),
                       (12, torch.bfloat16), (6, torch.float32)):
         with pytest.raises(ValueError, match='16-byte vectors'):
             port._check(*qkv(dh, dtype))
+
+
+@pytest.mark.parametrize('dh', [66, 70])
+def test_run_padded_matches_unpadded(dh):
+    """The wrapper's padding of a ragged Dh, run with the plain version: Dh
+    zero-padded to a whole number of 16-byte vectors (68 or 72 in float32),
+    the scale of the real Dh, the output sliced back; it gives the unpadded
+    result to 1e-6."""
+    q, k, v = map(torch.tensor, _qkv(2, 130, 2, dh, seed=dh))
+    seen = []
+
+    def attn(q, k, v, scale):
+        seen.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
+        return port.flash_attention_ref(q, k, v, scale)
+    got = port.run_padded(attn, q, k, v)
+    dh_p = dh + (-dh % 4)
+    assert seen == [(dh_p, dh_p, dh_p, 1.0 / np.sqrt(dh))]
+    assert got.shape == q.shape and got.is_contiguous()
+    torch.testing.assert_close(got, port.flash_attention_ref(q, k, v), rtol=1e-6, atol=1e-6)
+    # a whole number of vectors is passed through as it is
+    q8, k8, v8 = (x[..., :64].contiguous() for x in (q, k, v))
+    port.run_padded(attn, q8, k8, v8)
+    assert seen[-1] == (64, 64, 64, 1.0 / np.sqrt(64))
