@@ -8,12 +8,19 @@
    each kernel's registers and spills (ptxas) and its tensor-core, ldmatrix
    and cp.async instructions (cuobjdump -sass), and checks that K2's
    bfloat16 instances run on mma.sync (HMMA) fed by ldmatrix and cp.async,
-   and its float32 instances on mma.sync fed by cp.async.
+   its float32 instances on mma.sync fed by cp.async, and that none of
+   K1's twenty instances spills.
 3. Kernel phase: K1, the decode-step attention, against its plain PyTorch
-   version at the main path's shapes (B=256, H=8, T=30, Dh=72) at
-   positions 0, 14 and 29 in float32 and bfloat16: output and both caches.
-   Times the kernel, the plain version and, as a yardstick the port never
-   calls, torch's scaled_dot_product_attention over the same masked cache.
+   version in float32 and bfloat16, output and both caches: at the main
+   path's shape (B=256, H=8, T=30, Dh=72) at positions 0, 14 and 29, and
+   over T in {33, 38, 257} and Dh in {64, 128, 256, ragged} at positions
+   on both sides of a 32-slot tile edge.  Times the kernel, the plain
+   version and, as a yardstick the port never calls, torch's
+   scaled_dot_product_attention over the same masked cache, at B=256
+   (positions 14 and 29, both dtypes), B=512 and 1024 (float32) and
+   bench.py's probe (B=512, T=38, position 19, bfloat16); and the kernel
+   alone at B=256 at every position 0..28, whose mean is what the eval
+   path pays a launch.
 4. End-to-end phase: the main path of true-AR evaluation at run4's widths
    (results/run4/ckpt_snapshot/meta.json: 12 layers, d_model 576,
    magpie_dim 78) with weights from a seed, float32: 1,024 real rows of
@@ -128,46 +135,65 @@ def device_ms(torch, fn, arg_sets, iters=60):
 # -- build --------------------------------------------------------------------
 
 def kernel_label(mangled):
-    """'flash_attention_bf16_kernel<80>' and the like from a mangled
-    (Itanium ABI) kernel name: the last of its length-prefixed names, and
-    its template argument."""
+    """'flash_attention_bf16_kernel<80>', 'decode_attention_kernel<float, 4,
+    18>' and the like from a mangled (Itanium ABI) kernel name: the last of
+    its length-prefixed names, and its template arguments (int literals,
+    float, named types)."""
     i, names = (3 if mangled.startswith('_ZN') else 2), []
     while m := re.match(r'\d+', mangled[i:]):
         n, i = int(m.group()), i + len(m.group())
         names.append(mangled[i:i + n])
         i += n
-    arg = re.match(r'I(?:Li(\d+)E|(f)|13__nv_(bfloat16))E', mangled[i:])
     label = names[-1] if names else mangled
-    if not arg:
+    if not mangled[i:].startswith('I'):
         return label
-    t = next(x for x in arg.groups() if x)
-    return f"{label}<{'float' if t == 'f' else t}>"
+    i, args = i + 1, []
+    while i < len(mangled) and mangled[i] != 'E':
+        if m := re.match(r'L[ib](\d+)E|(f)|(\d+)', mangled[i:]):
+            if m.group(3):        # a length-prefixed type name
+                n = int(m.group(3))
+                start = i + len(m.group(3))
+                args.append(mangled[start:start + n].removeprefix('__nv_'))
+                i = start + n
+            else:
+                args.append(m.group(1) or 'float')
+                i += m.end()
+        else:
+            return label
+    return f"{label}<{', '.join(args)}>"
+
+
+SASS_OPS = ('HMMA', 'LDSM', 'LDGSTS', 'MUFU', 'LDS', 'LDS.128')
 
 
 def build_report(libs, nvcc):
     """Each kernel's registers and spills (ptxas -v, kept beside the
     library) and, in its SASS, its instructions and among them HMMA
-    (mma.sync), LDSM (ldmatrix), LDGSTS (cp.async) and MUFU (exp2 and the
-    like); K2's bfloat16 instances must have the first three, its float32
-    instances HMMA and LDGSTS."""
+    (mma.sync), LDSM (ldmatrix), LDGSTS (cp.async), MUFU (exp2 and the
+    like) and shared-memory loads (LDS, of which LDS.128 16-byte); K2's bfloat16 instances must have the first three, its float32
+    instances HMMA and LDGSTS; K1's twenty instances must not spill, and all
+    but the bfloat16 one with 2-byte chunks (which cp.async cannot move)
+    must fetch with LDGSTS."""
     for name, path in libs.items():
         log = path.with_name(path.name + '.log')
-        entry = None
+        entry, spills = None, {}
         for line in (log.read_text().splitlines() if log.exists() else []):
             if 'Compiling entry function' in line:
                 entry = kernel_label(line.split("'")[1])
             elif 'registers' in line or 'spill' in line:
                 print(f'build {name}: {entry}: {line.split(":", 1)[-1].strip()}')
+                if m := re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line):
+                    spills[entry] = int(m.group(1)) + int(m.group(2))
         sass = subprocess.run([str(Path(nvcc).parent / 'cuobjdump'), '-sass', str(path)],
                               capture_output=True, text=True, check=True).stdout
         counts, fn = {}, None
         for line in sass.splitlines():
             if 'Function :' in line:
                 fn = kernel_label(line.split('Function :')[1].strip())
-                counts[fn] = dict.fromkeys(('instructions', 'HMMA', 'LDSM', 'LDGSTS', 'MUFU'), 0)
+                counts[fn] = dict.fromkeys(('instructions',) + SASS_OPS, 0)
             elif fn and re.match(r'\s*/\*[0-9a-f]{4,}\*/', line):
                 counts[fn]['instructions'] += 1
-                for op in ('HMMA', 'LDSM', 'LDGSTS', 'MUFU'):
+                for op in SASS_OPS:
                     counts[fn][op] += f' {op}.' in line or f' {op} ' in line
         for fn, c in counts.items():
             print(f'sass {name}: {fn}: ' + ', '.join(f'{op} {n}' for op, n in c.items()))
@@ -183,10 +209,41 @@ def build_report(libs, nvcc):
                   f'{fn} lacks mma.sync, ldmatrix or cp.async: {c}')
         for fn, c in f32.items():
             check(c['HMMA'] and c['LDGSTS'], f'{fn} lacks mma.sync or cp.async: {c}')
-
+        if name == 'decode_attention':
+            k1 = {fn: c for fn, c in counts.items() if fn.startswith('decode_attention_kernel')}
+            check(len(k1) == 20, f'expected twenty instances of K1 (four 16-byte widths and '
+                  f'one of element chunks, in each dtype, each with the warps split over rows '
+                  f'or not), found {sorted(k1)}')
+            check(sorted(spills) == sorted(k1) and not any(spills.values()),
+                  f'a K1 instance spills, or ptxas reported no spills for it: {spills}')
+            for fn, c in k1.items():
+                check(c['LDGSTS'] or fn.startswith('decode_attention_kernel<bfloat16, 1, 256,'),
+                      f'{fn} fetches without cp.async: {c}')
 
 
 # -- kernel phase -------------------------------------------------------------
+
+# K1 against its plain version: the main path's shape (B=256, H=8, T=30,
+# Dh=72) at positions 0, 14 and 29; then (B=4, H=8) over T past one 32-slot
+# tile (33, 38, 257) at Dh=72 and over Dh (64, 128, 256 and a Dh that is
+# not a whole number of 16-byte vectors) at T=38, at the first slot, the
+# middle, the last, and on both sides of a tile edge
+K1_MAIN = (BATCH, 8, 30, 72)
+K1_MAIN_POSITIONS = (0, 14, 29)
+K1_GRID = [(33, 72, (0, 16, 31, 32)), (38, 72, (0, 19, 31, 32, 37)),
+           (257, 72, (0, 31, 32, 63, 64, 128, 200, 256))] + [
+          (38, dh, (0, 19, 31, 32, 37)) for dh in (64, 128, 256, 'ragged')]
+K1_RAGGED_DH = {'float32': 66, 'bfloat16': 70}
+# float32: other summation order only; bfloat16: one rounding of a float32
+# result to bf16 (one ulp, 2**-7 relative) plus 1e-3 absolute
+K1_TOL = {'float32': dict(rtol=1e-5, atol=1e-5), 'bfloat16': dict(rtol=2 ** -7, atol=1e-3)}
+# timed: (dtype, B, T, position); the first is the kernels line's row
+K1_TIMED = [('float32', BATCH, 30, 29), ('float32', BATCH, 30, 14),
+            ('bfloat16', BATCH, 30, 29), ('bfloat16', BATCH, 30, 14),
+            ('float32', 512, 30, 29), ('float32', 1024, 30, 29),
+            ('bfloat16', 512, 38, 19)]                # bench.py --pallas-decode's probe
+L2_COLD_BYTES = 150e6             # each timed rotation spans three L2 caches
+
 
 def k1_bytes_ops(b, h, dh, position, itemsize):
     """K1's least traffic and work: q, k_new, v_new read, the output and
@@ -203,61 +260,90 @@ def kernel_phase(torch, dev):
     from superconductor_vae_tpu_torch.ops.decode_attention import (
         decode_step_attention, decode_step_attention_ref)
 
-    b, h, t, dh = BATCH, 8, 30, 72
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    dtypes = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
-    def inputs(dtype):
+    def inputs(b, h, t, dh, dtype):
         rows = [torch.randn(b, h, dh, generator=gen, device=dev).to(dtype) for _ in range(3)]
-        caches = [torch.randn(b, h, t, dh, generator=gen, device=dev).to(dtype) for _ in range(2)]
+        caches = [torch.randn(b, h, t, dh, generator=gen, device=dev).to(dtype)
+                  for _ in range(2)]
         return rows + caches
 
-    tols = {torch.float32: dict(rtol=1e-5, atol=1e-5),        # summation order
-            torch.bfloat16: dict(rtol=2 ** -7, atol=1e-3)}    # one bf16 ulp
-    max_err = {}
-    for dtype, tol in tols.items():
-        for position in (0, 14, 29):
-            q, kn, vn, kc, vc = inputs(dtype)
-            kc_ref, vc_ref = kc.clone(), vc.clone()
-            out = decode_step_attention(q, kn, vn, kc, vc, position)
-            ref = decode_step_attention_ref(q, kn, vn, kc_ref, vc_ref, position)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            ok = torch.allclose(out.float(), ref.float(), **tol)
-            same = torch.equal(kc, kc_ref) and torch.equal(vc, vc_ref)
-            print(f'K1 check {str(dtype):15s} pos={position:2d}: max_abs_err={err:.3e} '
-                  f'(tol {tol}) caches_equal={same}')
-            check(ok, f'K1 output disagrees with the plain version ({dtype}, pos {position})')
-            check(same, f'K1 cache rows disagree ({dtype}, pos {position})')
-            max_err[dtype] = max(max_err.get(dtype, 0.0), err)
+    def held(b, h, t, dh, dtype, position):
+        """Kernel against the plain version: max abs error; fails on a
+        disagreement or on caches that differ at all."""
+        q, kn, vn, kc, vc = inputs(b, h, t, dh, dtype)
+        kc_ref, vc_ref = kc.clone(), vc.clone()
+        out = decode_step_attention(q, kn, vn, kc, vc, position)
+        ref = decode_step_attention_ref(q, kn, vn, kc_ref, vc_ref, position)
+        torch.cuda.synchronize()
+        name = str(dtype).split('.')[1]
+        err = (out.float() - ref.float()).abs().max().item()
+        where = f'{name}, B={b} H={h} T={t} Dh={dh} pos={position}'
+        check(out.shape == q.shape and torch.allclose(out.float(), ref.float(), **K1_TOL[name]),
+              f'K1 output disagrees with the plain version ({where}): max_abs_err {err:.3e}')
+        check(torch.equal(kc, kc_ref) and torch.equal(vc, vc_ref),
+              f'K1 cache rows disagree ({where})')
+        return err
 
-    n_sets = 4                    # 4 x 35 MB of f32 caches > 50 MB L2
+    max_err = dict.fromkeys(dtypes, 0.0)
+    for name, dtype in dtypes.items():
+        for position in K1_MAIN_POSITIONS:
+            err = held(*K1_MAIN, dtype, position)
+            print(f'K1 check {name:8s} B={K1_MAIN[0]} T={K1_MAIN[2]} Dh={K1_MAIN[3]} '
+                  f'pos={position:2d}: max_abs_err={err:.3e} (tol {K1_TOL[name]}) caches_equal=True')
+            max_err[name] = max(max_err[name], err)
+        for t, dh, positions in K1_GRID:
+            dh = K1_RAGGED_DH[name] if dh == 'ragged' else dh
+            worst = max(held(4, 8, t, dh, dtype, p) for p in positions)
+            print(f'K1 check {name:8s} B=4 T={t:3d} Dh={dh:3d} pos in {positions}: '
+                  f'max_abs_err={worst:.3e} (tol {K1_TOL[name]}) caches_equal=True')
+            max_err[name] = max(max_err[name], worst)
+
+    def sets_for(b, h, t, dh, dtype):
+        """Enough input sets that a rotation over them finds each cold."""
+        per_set = 2 * b * h * t * dh * torch.empty((), dtype=dtype).element_size()
+        return [inputs(b, h, t, dh, dtype) for _ in range(max(2, -(-int(L2_COLD_BYTES) // per_set)))]
+
+    h, dh = K1_MAIN[1], K1_MAIN[3]
     rows = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        sets = [inputs(dtype) for _ in range(n_sets)]
-        for position in (14, 29):
-            kern, kern_host = device_ms(
-                torch, lambda *a: decode_step_attention(*a, position), sets)
-            plain, plain_host = device_ms(
-                torch, lambda *a: decode_step_attention_ref(*a, position), sets)
-            keep = (torch.arange(t, device=dev) <= position)[None, :]   # [Lq=1, T]
+    for name, b, t, position in K1_TIMED:
+        dtype = dtypes[name]
+        sets = sets_for(b, h, t, dh, dtype)
+        kern, kern_host = device_ms(torch, lambda *a: decode_step_attention(*a, position), sets)
+        plain, plain_host = device_ms(torch, lambda *a: decode_step_attention_ref(*a, position),
+                                      sets)
+        keep = (torch.arange(t, device=dev) <= position)[None, :]   # [Lq=1, T]
 
-            def sdpa(q, kn, vn, kc, vc):
-                return F.scaled_dot_product_attention(q[:, :, None], kc, vc,
-                                                      attn_mask=keep)
-            lib, lib_host = device_ms(torch, sdpa, sets)
-            nbytes, ops = k1_bytes_ops(b, h, dh, position, torch.empty((), dtype=dtype).element_size())
-            bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S) * 1e3
-            by = 'bytes' if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOP_PER_S else 'operations'
-            print(f'K1 time {str(dtype):15s} pos={position:2d}: kernel {kern * 1e3:.2f} us, '
-                  f'plain {plain * 1e3:.2f} us, sdpa {lib * 1e3:.2f} us, bound {bound * 1e3:.2f} us '
-                  f'({by}: {nbytes / 1e6:.1f} MB, {ops / 1e6:.1f} MFLOP); host per call: '
-                  f'kernel {kern_host * 1e3:.1f} us, plain {plain_host * 1e3:.1f} us, '
-                  f'sdpa {lib_host * 1e3:.1f} us')
-            rows[(dtype, position)] = dict(ms=kern, plain_ms=plain, bound_ms=bound,
-                                           bound_by=by, library_ms=lib)
+        def sdpa(q, kn, vn, kc, vc):
+            return F.scaled_dot_product_attention(q[:, :, None], kc, vc, attn_mask=keep)
+        lib, lib_host = device_ms(torch, sdpa, sets)
+        nbytes, ops = k1_bytes_ops(b, h, dh, position, sets[0][0].element_size())
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S) * 1e3
+        by = 'bytes' if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOP_PER_S else 'operations'
+        print(f'K1 time {name:8s} B={b:4d} T={t} pos={position:2d}: kernel {kern * 1e3:.2f} us, '
+              f'plain {plain * 1e3:.2f} us, sdpa {lib * 1e3:.2f} us, bound {bound * 1e3:.2f} us '
+              f'({by}: {nbytes / 1e6:.1f} MB, {ops / 1e6:.1f} MFLOP); kernel / bound '
+              f'{kern / bound:.2f}, {nbytes / kern / 1e6:.1f} GB/s; {len(sets)} input sets; '
+              f'host per call: kernel {kern_host * 1e3:.1f} us, plain {plain_host * 1e3:.1f} us, '
+              f'sdpa {lib_host * 1e3:.1f} us')
+        rows[(name, b, t, position)] = dict(ms=kern, plain_ms=plain, bound_ms=bound,
+                                            bound_by=by, library_ms=lib)
         del sets
+
+    # what the eval path pays a launch: f32 at B=256 over positions 0..28
+    b, t = K1_MAIN[0], K1_MAIN[2]
+    sets = sets_for(b, h, t, dh, torch.float32)
+    per_pos = [device_ms(torch, lambda *a: decode_step_attention(*a, p), sets)[0]
+               for p in range(t - 1)]
+    bound_mean = sum(k1_bytes_ops(b, h, dh, p, 4)[0] for p in range(t - 1)) / (t - 1) \
+        / HBM_BYTES_PER_S * 1e3
+    print(f'K1 time float32  B={b} T={t} pos 0..{t - 2}: mean {sum(per_pos) / len(per_pos) * 1e3:.2f} '
+          f'us (bound mean {bound_mean * 1e3:.2f} us); by position ' +
+          ' '.join(f'{x * 1e3:.1f}' for x in per_pos))
+    del sets
     torch.cuda.empty_cache()
-    return rows[(torch.float32, 29)], max_err[torch.float32]
+    return rows[('float32', *K1_TIMED[0][1:])], max_err['float32']
 
 
 # -- K2 phase -----------------------------------------------------------------
@@ -498,10 +584,10 @@ def compare_streams(got, want, eos_id, what):
     return ties
 
 
-def trace_batch(torch, fn, what):
+def trace_batch(torch, fn, what, own=None):
     """``fn`` (one batch, or one step) under torch.profiler: the device's
-    busy share of the wall time (kernel time summed over the call) and the
-    top kernels."""
+    busy share of the wall time (kernel time summed over the call), the
+    top kernels and, if ``own`` is given, the kernels whose names hold it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -527,6 +613,12 @@ def trace_batch(torch, fn, what):
           f'{sum(e.count for e in kernels)} kernel launches')
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         print(f'trace:   {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x  {e.key[:90]}')
+    mine = [e for e in kernels if own and own in e.key]
+    for e in mine + ([None] if len(mine) > 1 else []):
+        us, n = ((e.self_device_time_total, e.count) if e else
+                 (sum(x.self_device_time_total for x in mine), sum(x.count for x in mine)))
+        print(f'trace:   {own}: {us / 1e3:.2f} ms over {n} launches, {us / max(n, 1):.2f} us '
+              f'a launch ({100 * us / busy_us:.1f}% of busy): {e.key[:90] if e else "all"}')
     gemm = [e for e in kernels if 'gemm' in e.key.lower()]
     gemm_us = sum(e.self_device_time_total for e in gemm)
     print(f'trace:   GEMM kernels {gemm_us / 1e3:.1f} ms ({100 * gemm_us / busy_us:.1f}% of '
@@ -627,7 +719,7 @@ def e2e_phase(torch, dev):
 
     trace_batch(torch, lambda: eval_batch(encoder, decoder, batches[0], gcfg,
                                           type_masks=type_masks),
-                f'one eval batch of {BATCH}')
+                f'one eval batch of {BATCH}', own='decode_attention_kernel')
 
     gen_all = torch.cat([o['generated'] for o in outs]).cpu().numpy()
     tgt = np.concatenate([bt['tokens'][:, 1:].cpu().numpy() for bt in batches])

@@ -9,6 +9,12 @@ For every batch row and head the call writes the new K/V row at
 single query over cache slots ``<= position`` with float32 accumulation and
 a 1/sqrt(Dh) scale, and returns the output in the query's dtype.
 
+Like the TPU kernel, the kernel takes any T and any ``0 <= position < T``.
+It takes Dh up to 256 (``MAX_DH``; the TPU kernel has no cap), in either
+dtype, including a Dh that is not a whole number of 16-byte vectors: that
+runs in a kernel instance with narrower loads, since the caches are written
+in place and cannot be zero-padded.
+
 ``decode_step_attention`` runs the plain PyTorch version
 (``decode_step_attention_ref``) for tensors on the CPU and the kernel for
 tensors on a CUDA device; there is no fallback from the one to the other.
@@ -25,8 +31,7 @@ import torch
 from ._build import load
 
 _NEG_INF = -1e30
-MAX_T = 32           # one lane per cache slot
-MAX_DH = 128         # four output channels per lane
+MAX_DH = 256         # the kernel's widest instance
 _SUFFIX = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
 
 
@@ -50,9 +55,8 @@ def decode_step_attention_ref(q, k_new, v_new, k_cache, v_cache,
     return o.to(q.dtype)
 
 
-@functools.cache
-def _launchers():
-    lib = load('decode_attention')
+def bind(lib: ctypes.CDLL) -> dict:
+    """{dtype: C entry point} of a library built from csrc/decode_attention.cu."""
     fns = {}
     for dt, suffix in _SUFFIX.items():
         fn = getattr(lib, f'sc_decode_attention_{suffix}')
@@ -61,6 +65,11 @@ def _launchers():
         fn.restype = ctypes.c_int
         fns[dt] = fn
     return fns
+
+
+@functools.cache
+def _launchers():
+    return bind(load('decode_attention'))
 
 
 def _check(q, k_new, v_new, k_cache, v_cache, position):
@@ -82,17 +91,21 @@ def _check(q, k_new, v_new, k_cache, v_cache, position):
             f'{[tuple(x.shape) for x in tensors]}')
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError('decode_step_attention: tensors must be contiguous')
-    if b * h == 0 or not 0 < t <= MAX_T:
-        raise ValueError(f'decode_step_attention: need B*H > 0 and '
-                         f'0 < T <= {MAX_T}, got B={b} H={h} T={t}')
+    if b * h == 0 or t == 0:
+        raise ValueError(f'decode_step_attention: need B*H > 0 and T > 0, '
+                         f'got B={b} H={h} T={t}')
     if not isinstance(position, int) or not 0 <= position < t:
         raise ValueError(f'decode_step_attention: position must be an int '
                          f'in [0, {t}), got {position!r}')
-    if dh > MAX_DH or (dh * q.element_size()) % 16:
-        raise ValueError(f'decode_step_attention: Dh={dh} must be <= {MAX_DH} '
-                         'and a whole number of 16-byte vectors')
-    if any(x.data_ptr() % 16 for x in tensors):
-        raise ValueError('decode_step_attention: tensors must be 16-byte aligned')
+    if not 0 < dh <= MAX_DH:
+        raise ValueError(f'decode_step_attention: Dh={dh} must be in '
+                         f'[1, {MAX_DH}]')
+    # rows of whole 16-byte vectors take 16-byte loads; a ragged Dh takes
+    # element loads (a layer's slice of a ragged cache may start anywhere)
+    align = 16 if (dh * q.element_size()) % 16 == 0 else q.element_size()
+    if any(x.data_ptr() % align for x in tensors):
+        raise ValueError(f'decode_step_attention: tensors must be {align}-byte '
+                         f'aligned at Dh={dh}')
 
 
 def decode_step_attention(q: torch.Tensor, k_new: torch.Tensor,
@@ -105,7 +118,7 @@ def decode_step_attention(q: torch.Tensor, k_new: torch.Tensor,
     CPU tensors take ``decode_step_attention_ref``.  CUDA tensors launch
     the kernel on the current stream (counted in
     ``decode_step_attention.launches``) or raise: unsupported inputs
-    (dtype, shape, layout, T > 32) and a failed launch are errors."""
+    (dtype, shape, layout, Dh > 256) and a failed launch are errors."""
     if q.device.type == 'cpu':
         if any(t.device != q.device for t in (k_new, v_new, k_cache, v_cache)):
             raise ValueError('decode_step_attention: tensors on different devices')

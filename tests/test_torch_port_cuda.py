@@ -10,7 +10,7 @@ Elsewhere every test skips.
 Tolerance: K1 float32 output 1e-5 absolute and relative (other summation
 order); bfloat16 output one bf16 ulp (2**-7 relative) plus 1e-3
 absolute, since both round a float32 result once.  Cache rows are copies
-and must be equal exactly.  K2 float32 2e-5 (the JAX tests' tolerance);
+and must be equal exactly, at every T, position and Dh.  K2 float32 2e-5 (the JAX tests' tolerance);
 bfloat16 two bf16 ulp (2**-6 relative) plus 2e-3 absolute: the output is
 rounded once, and the probabilities are rounded to bf16 against the
 running max in the kernel and the final max in the plain version.  A
@@ -36,18 +36,34 @@ def cuda():
     return torch.device('cuda')
 
 
-def _inputs(dev, b, t, dtype, seed):
+def _inputs(dev, b, t, dtype, seed, dh=72):
     g = torch.Generator(device=dev).manual_seed(seed)
-    rows = [torch.randn(b, 8, 72, generator=g, device=dev).to(dtype) for _ in range(3)]
-    caches = [torch.randn(b, 8, t, 72, generator=g, device=dev).to(dtype) for _ in range(2)]
+    rows = [torch.randn(b, 8, dh, generator=g, device=dev).to(dtype) for _ in range(3)]
+    caches = [torch.randn(b, 8, t, dh, generator=g, device=dev).to(dtype) for _ in range(2)]
     return rows + caches
 
 
+# (B, T, position, Dh): the main path's shapes, then T past one 32-slot tile
+# at the first, middle and last slot and on both sides of a tile edge, the
+# kernel's other widths (Dh 64, 128, 256), Dh 66 and 70 (not whole 16-byte
+# vectors in either dtype: the instance with element loads), and the
+# batches of RL rollouts
+K1_CASES = [pytest.param(1, 1, 0, 72, id='1-1-0'), pytest.param(3, 30, 0, 72, id='3-30-0'),
+            pytest.param(5, 30, 17, 72, id='5-30-17'),
+            pytest.param(256, 30, 29, 72, id='256-30-29'),
+            pytest.param(2, 32, 31, 72, id='2-32-31'),
+            (2, 33, 0, 72), (2, 33, 31, 72), (2, 33, 32, 72), (3, 38, 19, 72), (3, 38, 37, 72),
+            (2, 64, 32, 72), (2, 64, 63, 72), (1, 257, 0, 72), (1, 257, 128, 72),
+            (2, 257, 200, 72), (1, 257, 256, 72),
+            (3, 38, 37, 64), (3, 38, 37, 128), (2, 38, 32, 256), (2, 30, 29, 256),
+            (1, 257, 200, 256), (3, 38, 37, 66), (3, 30, 7, 66), (2, 257, 200, 70),
+            (512, 30, 29, 72), (1024, 30, 29, 72)]
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('b,t,position', [(1, 1, 0), (3, 30, 0), (5, 30, 17),
-                                          (256, 30, 29), (2, 32, 31)])
-def test_kernel_matches_plain_version(cuda, dtype, b, t, position):
-    q, kn, vn, kc, vc = _inputs(cuda, b, t, dtype, seed=position)
+@pytest.mark.parametrize('b,t,position,dh', K1_CASES)
+def test_kernel_matches_plain_version(cuda, dtype, b, t, position, dh):
+    q, kn, vn, kc, vc = _inputs(cuda, b, t, dtype, seed=position, dh=dh)
     kc_ref, vc_ref = kc.clone(), vc.clone()
     before = decode_step_attention.launches
     out = decode_step_attention(q, kn, vn, kc, vc, position)
@@ -64,17 +80,14 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     q, kn, vn, kc, vc = _inputs(cuda, 2, 30, torch.float32, seed=0)
     with pytest.raises(ValueError):                     # position past the cache
         decode_step_attention(q, kn, vn, kc, vc, 30)
-    with pytest.raises(ValueError):                     # T > 32
-        big = torch.zeros(2, 8, 33, 72, device=cuda)
-        decode_step_attention(q, kn, vn, big, big.clone(), 0)
+    with pytest.raises(ValueError):                     # Dh > 256
+        wide = [torch.zeros(2, 8, 260, device=cuda) for _ in range(3)]
+        cache = torch.zeros(2, 8, 30, 260, device=cuda)
+        decode_step_attention(*wide, cache, cache.clone(), 0)
     with pytest.raises(TypeError):                      # mixed dtypes
         decode_step_attention(q.half(), kn, vn, kc, vc, 0)
     with pytest.raises(ValueError):                     # not contiguous
         decode_step_attention(q, kn, vn, kc.transpose(1, 2).contiguous().transpose(1, 2), vc, 0)
-    with pytest.raises(ValueError):                     # Dh not whole 16-byte vectors
-        odd = [torch.zeros(2, 8, 70, device=cuda) for _ in range(3)]
-        cache = torch.zeros(2, 8, 30, 70, device=cuda)
-        decode_step_attention(*odd, cache, cache.clone(), 0)
 
 
 K2_SHAPES = [(2, 128, 2, 64), (2, 256, 2, 72), (2, 128, 2, 128), (2, 100, 2, 72),
