@@ -14,13 +14,15 @@
    version in float32 and bfloat16, output and both caches: at the main
    path's shape (B=256, H=8, T=30, Dh=72) at positions 0, 14 and 29, and
    over T in {33, 38, 257} and Dh in {64, 128, 256, ragged} at positions
-   on both sides of a 32-slot tile edge.  Times the kernel, the plain
+   on both sides of a 32-slot tile edge; in float32 at the RL rollouts'
+   shapes (B=1024 and 2048) at positions 0, 7, 8, 14 and 29, which run
+   each split of the warps over a row.  Times the kernel, the plain
    version and, as a yardstick the port never calls, torch's
    scaled_dot_product_attention over the same masked cache, at B=256
    (positions 14 and 29, both dtypes), B=512 and 1024 (float32) and
    bench.py's probe (B=512, T=38, position 19, bfloat16); and the kernel
-   alone at B=256 at every position 0..28, whose mean is what the eval
-   path pays a launch.
+   alone at every position 0..28 at B=256 and at B=1024, whose means are
+   what the eval path and the SCST rollout (RL batch 512) pay a launch.
 4. End-to-end phase: the main path of true-AR evaluation at run4's widths
    (results/run4/ckpt_snapshot/meta.json: 12 layers, d_model 576,
    magpie_dim 78) with weights from a seed, float32: 1,024 real rows of
@@ -50,7 +52,22 @@
    parameters changed, no K1 or K2 launch; one step under the profiler;
    one step of 8 rows with dropout off on the card and on the CPU from the
    same weights, whose metrics, AdamW moments and updates must agree.
-7. Prints the kernels' JSON line, then as its last line
+7. RL phase: the RL train step (training/train_step.py, rl_enabled) at
+   run4's widths with weights from a seed, float32, dropout 0.1, K1 in
+   the rollouts, bench.py's RL TrainConfig (rl.max_len = max_len, rl_w 1)
+   on 512 of the rows, the stop and type heads fixed as in the e2e phase:
+   SCST (a [2 x 512] rollout) with a warm-up step and 4 timed steps (RL
+   samples/s, peak memory), then RLOO (K=4, a [4 x 512] rollout) with 2.
+   Checks: (a) every metric finite and every group of parameters changed;
+   (b) K1 launched once a layer at every decode step the rollouts took, K2
+   never; (c) a rollout's sampled half's log-probs equal the TF re-score
+   of its tokens within 2e-4; (d) its greedy half equals a greedy rollout
+   through the plain attention path except at near-ties; (e) one SCST step
+   of 8 rows with dropout off on the card and on the CPU from the same
+   weights, the CPU step fed the card's rollout: metrics, AdamW moments
+   and updates agree.  One SCST step and one fused rollout under the
+   profiler; the rollout and the TF re-score with its backward timed alone.
+8. Prints the kernels' JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -234,6 +251,11 @@ K1_GRID = [(33, 72, (0, 16, 31, 32)), (38, 72, (0, 19, 31, 32, 37)),
            (257, 72, (0, 31, 32, 63, 64, 128, 200, 256))] + [
           (38, dh, (0, 19, 31, 32, 37)) for dh in (64, 128, 256, 'ragged')]
 K1_RAGGED_DH = {'float32': 66, 'bfloat16': 70}
+# the RL path's shapes, float32: the fused [2 x 512] SCST rollout and the
+# [4 x 512] RLOO rollout, at positions that run each split of the warps
+# (one warp a row below 8, two below 16, all four, kFull, from 16)
+K1_RL = [(2 * 512, 8, 30, 72), (4 * 512, 8, 30, 72)]
+K1_RL_POSITIONS = (0, 7, 8, 14, 29)
 # float32: other summation order only; bfloat16: one rounding of a float32
 # result to bf16 (one ulp, 2**-7 relative) plus 1e-3 absolute
 K1_TOL = {'float32': dict(rtol=1e-5, atol=1e-5), 'bfloat16': dict(rtol=2 ** -7, atol=1e-3)}
@@ -243,6 +265,7 @@ K1_TIMED = [('float32', BATCH, 30, 29), ('float32', BATCH, 30, 14),
             ('float32', 512, 30, 29), ('float32', 1024, 30, 29),
             ('bfloat16', 512, 38, 19)]                # bench.py --pallas-decode's probe
 L2_COLD_BYTES = 150e6             # each timed rotation spans three L2 caches
+K1_PER_POSITION_B = (BATCH, 1024)   # the eval batch; the SCST rollout of 512 rows
 
 
 def k1_bytes_ops(b, h, dh, position, itemsize):
@@ -299,6 +322,12 @@ def kernel_phase(torch, dev):
             print(f'K1 check {name:8s} B=4 T={t:3d} Dh={dh:3d} pos in {positions}: '
                   f'max_abs_err={worst:.3e} (tol {K1_TOL[name]}) caches_equal=True')
             max_err[name] = max(max_err[name], worst)
+    for shape in K1_RL:
+        worst = max(held(*shape, torch.float32, p) for p in K1_RL_POSITIONS)
+        print(f'K1 check float32  B={shape[0]} T={shape[2]} Dh={shape[3]} (RL rollout) pos in '
+              f'{K1_RL_POSITIONS}: max_abs_err={worst:.3e} (tol {K1_TOL["float32"]}) '
+              'caches_equal=True')
+        max_err['float32'] = max(max_err['float32'], worst)
 
     def sets_for(b, h, t, dh, dtype):
         """Enough input sets that a rotation over them finds each cold."""
@@ -331,17 +360,20 @@ def kernel_phase(torch, dev):
                                             bound_by=by, library_ms=lib)
         del sets
 
-    # what the eval path pays a launch: f32 at B=256 over positions 0..28
-    b, t = K1_MAIN[0], K1_MAIN[2]
-    sets = sets_for(b, h, t, dh, torch.float32)
-    per_pos = [device_ms(torch, lambda *a: decode_step_attention(*a, p), sets)[0]
-               for p in range(t - 1)]
-    bound_mean = sum(k1_bytes_ops(b, h, dh, p, 4)[0] for p in range(t - 1)) / (t - 1) \
-        / HBM_BYTES_PER_S * 1e3
-    print(f'K1 time float32  B={b} T={t} pos 0..{t - 2}: mean {sum(per_pos) / len(per_pos) * 1e3:.2f} '
-          f'us (bound mean {bound_mean * 1e3:.2f} us); by position ' +
-          ' '.join(f'{x * 1e3:.1f}' for x in per_pos))
-    del sets
+    # what a launch costs on the main path, f32 over positions 0..28: at
+    # the eval path's B=256 and the SCST rollout's B=1024 (RL batch 512)
+    t = K1_MAIN[2]
+    for b in K1_PER_POSITION_B:
+        sets = sets_for(b, h, t, dh, torch.float32)
+        per_pos = [device_ms(torch, lambda *a: decode_step_attention(*a, p), sets)[0]
+                   for p in range(t - 1)]
+        bound_mean = sum(k1_bytes_ops(b, h, dh, p, 4)[0] for p in range(t - 1)) / (t - 1) \
+            / HBM_BYTES_PER_S * 1e3
+        mean = sum(per_pos) / len(per_pos)
+        print(f'K1 time float32  B={b} T={t} pos 0..{t - 2}: mean {mean * 1e3:.2f} us (bound '
+              f'mean {bound_mean * 1e3:.2f} us, kernel / bound {mean / bound_mean:.2f}); by '
+              'position ' + ' '.join(f'{x * 1e3:.1f}' for x in per_pos))
+        del sets
     torch.cuda.empty_cache()
     return rows[('float32', *K1_TIMED[0][1:])], max_err['float32']
 
@@ -627,6 +659,19 @@ def trace_batch(torch, fn, what, own=None):
           f'{sum(e.count for e in kernels) - sum(e.count for e in gemm)} launches')
 
 
+def fix_rollout_heads(torch, decoder):
+    """Random heads end every rollout at its first step (hard stop or a
+    predicted EOS type).  A constant stop probability of 0.018 and a type
+    head that never predicts EOS make every rollout run all max_len - 1
+    steps instead: the decode's worst case, and K1 at every position (a
+    trained model stops after 15-22 steps).  Returns the decoder."""
+    with torch.no_grad():
+        decoder.stop_d2.weight.zero_()
+        decoder.stop_d2.bias.fill_(-4.0)
+        decoder.type_d3.bias[4] = -30.0
+    return decoder
+
+
 def e2e_phase(torch, dev):
     import numpy as np
     from superconductor_vae_tpu_torch.data import read_csv_rows
@@ -645,16 +690,7 @@ def e2e_phase(torch, dev):
 
     gen = torch.Generator().manual_seed(SEED)
     encoder = init_params(MaterialsEncoder(cfg, device=dev), gen).eval()
-    decoder = init_params(FormulaDecoder(cfg, device=dev), gen).eval()
-    with torch.no_grad():
-        # Random heads end every rollout at its first step (hard stop or a
-        # predicted EOS type).  A constant stop probability of 0.018 and a
-        # type head that never predicts EOS make every rollout run all
-        # max_len - 1 steps instead: the decode's worst case, and K1 at
-        # every position (a trained model stops after 15-22 steps).
-        decoder.stop_d2.weight.zero_()
-        decoder.stop_d2.bias.fill_(-4.0)
-        decoder.type_d3.bias[4] = -30.0
+    decoder = fix_rollout_heads(torch, init_params(FormulaDecoder(cfg, device=dev), gen).eval())
     plain_cfg = dataclasses.replace(cfg, pallas_decode=False)
     decoder_plain = FormulaDecoder(plain_cfg, device=dev).eval()
     decoder_plain.load_state_dict(decoder.state_dict())
@@ -741,7 +777,7 @@ N_TRAIN_STEPS = 8
 METRIC_TOL = dict(rtol=1e-4, atol=1e-6)   # card vs CPU: float32, other summation orders
 
 
-def _tree_check(got, want, what):
+def _tree_check(phase, got, want, what):
     """Card against CPU, tensor by tensor: 1e-3 relative plus 1e-4 of the
     largest magnitude in the tree (elements near zero carry the summation
     noise of the whole tree)."""
@@ -751,7 +787,7 @@ def _tree_check(got, want, what):
         g = got[k].cpu()
         bound = 1e-3 * w.abs() + 1e-4 * scale
         worst = max(worst, ((g - w).abs() / bound).max().item())
-    print(f'train: card vs CPU {what}: worst error / tolerance {worst:.3f}')
+    print(f'{phase}: card vs CPU {what}: worst error / tolerance {worst:.3f}')
     check(worst <= 1.0, f'card and CPU disagree on {what}')
 
 
@@ -765,6 +801,41 @@ def _group_tensors(state):
                          if p in opt.state else None)
                      for n, p in module.named_parameters()}
     return out
+
+
+def check_metrics(phase, got, want, what):
+    """Card against CPU, metric by metric, within METRIC_TOL."""
+    for k in want:
+        g, w = got[k].item(), want[k].item()
+        ok = abs(g - w) <= METRIC_TOL['atol'] + METRIC_TOL['rtol'] * abs(w)
+        check(ok, f'{phase}: card {g!r} and CPU {w!r} disagree on {what} {k}')
+    print(f'{phase}: card vs CPU: {len(want)} {what} agree within {METRIC_TOL}')
+
+
+def check_updates(torch, phase, before_c, after_c, before_h, after_h, lr):
+    """Card against CPU after one step from the same weights: each group's
+    AdamW first moment (``_tree_check``), and each parameter update."""
+    for name in after_h:
+        _tree_check(phase, {k: v[1] for k, v in after_c[name].items()},
+                    {k: v[1] for k, v in after_h[name].items()}, f'{name} AdamW mu')
+        mu_scale = max(v[1].abs().max().item() for v in after_h[name].values())
+        worst = 0.0
+        for k, (p_h, mu_h) in after_h[name].items():
+            d_c = (after_c[name][k][0] - before_c[name][k][0]).cpu()
+            d_h = p_h - before_h[name][k][0]
+            # an update is at most lr (1 + wd |p|) at step 1; where the
+            # gradient is far above its tree's float32 noise the sign is
+            # sure and the two updates agree to 1e-3
+            check(bool(((d_c - d_h).abs() <= 2 * lr * (1 + 1e-2 * p_h.abs()) + 1e-7).all()),
+                  f'{phase}: {name} {k} update out of bounds')
+            sure = mu_h.abs() > 1e-2 * mu_scale
+            ulp = 4 * torch.finfo(torch.float32).eps * before_h[name][k][0].abs()
+            err = ((d_c - d_h).abs() / (1e-3 * d_h.abs() + ulp + 1e-9))[sure].max().item() \
+                if bool(sure.any()) else 0.0
+            worst = max(worst, err)
+        print(f'{phase}: card vs CPU {name} parameter updates: worst error / tolerance '
+              f'{worst:.3f}')
+        check(worst <= 1.0, f'card and CPU disagree on the {name} updates')
 
 
 def train_phase(torch, dev, batches):
@@ -859,34 +930,246 @@ def train_phase(torch, dev, batches):
         runs.append((pz, m, before, _group_tensors(st)))
         del st
     (pz_c, m_c, before_c, after_c), (pz_h, m_h, before_h, after_h) = runs
-    for what, got, want in (('physics_z_loss', pz_c, pz_h), ('step metrics', m_c, m_h)):
-        for k in want:
-            g, w = got[k].item(), want[k].item()
-            ok = abs(g - w) <= METRIC_TOL['atol'] + METRIC_TOL['rtol'] * abs(w)
-            check(ok, f'train: card {g!r} and CPU {w!r} disagree on {what} {k}')
-        print(f'train: card vs CPU: {len(want)} {what} agree within {METRIC_TOL}')
-    lr = tcfg.learning_rate
-    for name in after_h:
-        _tree_check({k: v[1] for k, v in after_c[name].items()},
-                    {k: v[1] for k, v in after_h[name].items()}, f'{name} AdamW mu')
-        mu_scale = max(v[1].abs().max().item() for v in after_h[name].values())
-        worst = 0.0
-        for k, (p_h, mu_h) in after_h[name].items():
-            d_c = (after_c[name][k][0] - before_c[name][k][0]).cpu()
-            d_h = p_h - before_h[name][k][0]
-            # an update is at most lr (1 + wd |p|) at step 1; where the
-            # gradient is far above its tree's float32 noise the sign is
-            # sure and the two updates agree to 1e-3
-            check(bool(((d_c - d_h).abs() <= 2 * lr * (1 + 1e-2 * p_h.abs()) + 1e-7).all()),
-                  f'train: {name} {k} update out of bounds')
-            sure = mu_h.abs() > 1e-2 * mu_scale
-            ulp = 4 * torch.finfo(torch.float32).eps * before_h[name][k][0].abs()
-            err = ((d_c - d_h).abs() / (1e-3 * d_h.abs() + ulp + 1e-9))[sure].max().item() \
-                if bool(sure.any()) else 0.0
-            worst = max(worst, err)
-        print(f'train: card vs CPU {name} parameter updates: worst error / tolerance {worst:.3f}')
-        check(worst <= 1.0, f'card and CPU disagree on the {name} updates')
+    check_metrics('train', pz_c, pz_h, 'physics_z_loss')
+    check_metrics('train', m_c, m_h, 'step metrics')
+    check_updates(torch, 'train', before_c, after_c, before_h, after_h, tcfg.learning_rate)
     return samples_per_s, peak
+
+
+# -- RL phase -----------------------------------------------------------------
+
+RL_BATCH = 512                    # bench.py's RL batch: a [2 x 512] SCST rollout
+N_RL_STEPS = 4
+RLOO_K, N_RLOO_STEPS = 4, 2       # a [4 x 512] rollout
+RESCORE_TOL = 2e-4                # rollout log-probs against the TF re-score
+
+
+class RolloutLog:
+    """Stands in for ops/rl.py ``_rollout`` while entered: calls it and
+    keeps each rollout's output, so that a run can count the decode steps
+    it took; or, given ``replay``, returns that rollout instead (another
+    run's, moved to this run's device)."""
+
+    def __init__(self, rl, replay=None):
+        self.rl, self.original, self.replay, self.outputs = rl, rl._rollout, replay, []
+
+    def __call__(self, *args, **kwargs):
+        if self.replay is not None:
+            dev = args[1].device                   # z
+            return {k: v.to(dev) for k, v in self.replay.items()}
+        out = self.original(*args, **kwargs)
+        self.outputs.append(out)
+        return out
+
+    def __enter__(self):
+        self.rl._rollout = self
+        return self
+
+    def __exit__(self, *exc):
+        self.rl._rollout = self.original
+
+
+def rl_step_run(torch, step, state, batches, dyn, n_steps, rl, eos_id):
+    """``n_steps`` timed RL steps after one warm-up, through the rollout
+    log; the kernels' counts at 0 just before, read just after.  Returns
+    (wall s, metrics, decode steps of each rollout, K1 and K2 launches,
+    peak bytes)."""
+    from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+    from superconductor_vae_tpu_torch.ops.fused_attention import flash_attention
+    state, _ = step(state, batches[0], SEED, dyn)              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with RolloutLog(rl) as log:
+        decode_step_attention.launches = 0
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        metrics = [step(state, batches[(i + 1) % len(batches)], SEED, dyn)[1]
+                   for i in range(n_steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (decode_step_attention.launches, flash_attention.launches)
+    steps = [steps_run(o['tokens'], eos_id) for o in log.outputs]
+    return wall, metrics, steps, launches, torch.cuda.max_memory_allocated()
+
+
+def rl_phase(torch, dev, batches):
+    """The RL train step (SCST, then RLOO) at run4's widths with weights
+    from a seed, float32, dropout 0.1, through K1 (pallas_decode), with
+    bench.py's RL TrainConfig (rl.max_len = max_len, rl_w 1) on 512 of the
+    1,024 rows and the stop and type heads fixed as in the e2e phase.
+    Checks (a) finite metrics and every group changed, (b) K1 launches =
+    layers x decode steps, (c) the rollout's log-probs against the TF
+    re-score, (d) the greedy half against a plain-path greedy rollout, (e)
+    one step of 8 rows on the card and on the CPU, the CPU fed the card's
+    rollout.  Returns {'scst': (samples/s, K1 launches), 'rloo': ...}."""
+    import math
+    from superconductor_vae_tpu_torch.models import config_from_meta
+    from superconductor_vae_tpu_torch.ops import rl
+    from superconductor_vae_tpu_torch.tokenizer import EOS_ID, default_tokenizer
+    from superconductor_vae_tpu_torch.training import (
+        TrainConfig, build_luts, create_train_state, default_dyn, make_train_step)
+
+    meta = json.loads(META.read_text())
+    cfg = config_from_meta(meta['model_config'], pallas_decode=True)
+    tok = default_tokenizer(max_len=cfg.max_len)
+    luts = build_luts(tok, device=dev)
+    rows = [{k: torch.cat([a[k], b[k]]) for k in a} for a, b in zip(batches[::2], batches[1::2])]
+    check(all(len(r['tokens']) == RL_BATCH for r in rows), 'RL batches of 512 rows')
+    results = {}
+    for method, n_steps in (('scst', N_RL_STEPS), ('rloo', N_RLOO_STEPS)):
+        tcfg = TrainConfig(batch_size=RL_BATCH, use_physics_z=True, magpie_proj_learnable=True,
+                           hungarian_enabled=False, use_round_trip=False,
+                           rl=rl.RLConfig(max_len=cfg.max_len, method=method,
+                                          n_samples_rloo=RLOO_K))
+        dyn = dict(default_dyn(tcfg), rl_w=1.0)
+        k = 2 if method == 'scst' else RLOO_K
+        print(f'rl: {method}, run4 widths, float32, dropout {cfg.dropout}, batch {RL_BATCH} '
+              f'({k * RL_BATCH}-row rollout through K1), rl_w 1, temperature '
+              f'{dyn["rl_temperature"]}, gates: stop boost {tcfg.rl.stop_boost}, hard stop '
+              f'{tcfg.rl.hard_stop_threshold}, type masking {tcfg.rl.use_type_masking}, '
+              f'early exit {tcfg.rl.early_exit}')
+        state = create_train_state(cfg, tcfg, seed=SEED, device=dev)
+        fix_rollout_heads(torch, state.decoder)
+        step = make_train_step(tcfg, luts, rl_enabled=True)
+        start = _group_tensors(state)
+        wall, metrics, steps, launches, peak = rl_step_run(
+            torch, step, state, rows, dyn, n_steps, rl, EOS_ID)
+        vals = [{key: v.item() for key, v in m.items()} for m in metrics]
+        # (a) finite metrics, every group of parameters changed
+        for i, v in enumerate(vals):
+            bad = [key for key, x in v.items() if not math.isfinite(x)]
+            check(not bad, f'rl {method} step {i + 1}: metrics not finite: {bad}')
+        end = _group_tensors(state)
+        for name in start:
+            changed = sum(not torch.equal(start[name][key][0], end[name][key][0])
+                          for key in start[name])
+            print(f'rl: {method}: {name}: {changed} of {len(start[name])} parameter '
+                  'tensors changed')
+            check(changed > 0, f'rl {method}: no parameter of the {name} changed')
+        del start, end
+        # (b) K1 at every decode step of every layer, K2 never
+        print(f'rl: {method}: decode steps of each rollout {steps}; K1/K2 launches {launches}')
+        check(launches[0] > 0, f'rl {method}: K1 was not launched')
+        check(launches == (cfg.num_layers * sum(steps), 0),
+              f'rl {method}: K1/K2 launches {launches} != (layers x steps '
+              f'{cfg.num_layers * sum(steps)}, 0)')
+        rate = n_steps * RL_BATCH / wall
+        print(f'rl: {method}: {n_steps} steps of {RL_BATCH} in {wall:.3f} s = {rate:.1f} RL '
+              f'samples/s; peak memory {peak / 2 ** 30:.2f} GiB')
+        for i in (0, n_steps - 1):
+            print(f'rl: {method} step {i + 2}: total {vals[i]["total"]:.4f}, reinforce '
+                  f'{vals[i]["reinforce_loss"]:.4f}, mean_reward {vals[i]["mean_reward"]:.4f}, '
+                  f'reward_var {vals[i]["reward_var"]:.4f}, grad_norm {vals[i]["grad_norm"]:.3f}')
+        results[method] = (rate, launches[0])
+        if method == 'scst':
+            trace_batch(torch, lambda: step(state, rows[1], SEED, dyn),
+                        f'one SCST step of {RL_BATCH}', own='decode_attention_kernel')
+            rollout_checks(torch, dev, cfg, tcfg, state, rows[0], luts, dyn)
+        del state, step, metrics
+        torch.cuda.empty_cache()
+
+    # (e) one SCST step of 8 rows with dropout off, card against CPU, the
+    # CPU step fed the card's rollout.  With random weights many rows get
+    # the same reward greedy and sampled (the floor plus the same
+    # constraint penalties), so the first 8 rows whose RL loss is not 0
+    # are taken: the check then covers the policy gradient
+    cfg0 = dataclasses.replace(cfg, dropout=0.0)
+    tcfg = TrainConfig(batch_size=N_CPU_ROWS, use_physics_z=True, magpie_proj_learnable=True,
+                       hungarian_enabled=False, use_round_trip=False,
+                       rl=rl.RLConfig(max_len=cfg.max_len))
+    dyn = dict(default_dyn(tcfg), rl_w=1.0)
+
+    def one_step(where, small, replay=None):
+        st = create_train_state(cfg0, tcfg, seed=SEED + 2, device=where)
+        fix_rollout_heads(torch, st.decoder)
+        before = _group_tensors(st)
+        with RolloutLog(rl, replay=replay) as log:       # a replayed step samples nothing
+            st, m = make_train_step(tcfg, build_luts(tok, device=where), rl_enabled=True)(
+                st, {key: v.to(where) for key, v in small.items()}, SEED, dyn)
+        return (m, before, _group_tensors(st)), (log.outputs or [replay])[0]
+
+    for start in range(0, RL_BATCH, N_CPU_ROWS):
+        small = {key: v[start:start + N_CPU_ROWS] for key, v in rows[0].items()}
+        card, card_rollout = one_step(dev, small)
+        if card[0]['reinforce_loss'].item() != 0.0:
+            break
+    print(f'rl: card vs CPU on rows {start}..{start + N_CPU_ROWS - 1}: reinforce_loss '
+          f'{card[0]["reinforce_loss"].item():.4f}')
+    check(card[0]['reinforce_loss'].item() != 0.0, 'rl: no 8 rows with an RL loss other than 0')
+    runs = [card, one_step(torch.device('cpu'), small, replay=card_rollout)[0]]
+    (m_c, before_c, after_c), (m_h, before_h, after_h) = runs
+    for key in ('reinforce_loss', 'total'):
+        print(f'rl: card vs CPU {key}: card {m_c[key].item()!r}, CPU {m_h[key].item()!r}')
+    check_metrics('rl', m_c, m_h, 'SCST step metrics')
+    check_updates(torch, 'rl', before_c, after_c, before_h, after_h, tcfg.learning_rate)
+    return results
+
+
+def rollout_checks(torch, dev, cfg, tcfg, state, batch, luts, dyn):
+    """(c) and (d) on one fused SCST rollout of the batch through K1, from
+    the trained state's weights."""
+    from superconductor_vae_tpu_torch.generation import generate_with_kv_cache
+    from superconductor_vae_tpu_torch.models import FormulaDecoder
+    from superconductor_vae_tpu_torch.ops import rl
+    from superconductor_vae_tpu_torch.tokenizer import EOS_ID
+    from superconductor_vae_tpu_torch.training import stoich_conditioning
+    enc, dec = state.encoder.eval(), state.decoder.eval()
+    rlcfg, temp = tcfg.rl, dyn['rl_temperature']
+    b = len(batch['tokens'])
+    with torch.no_grad():
+        enc_out = enc(batch['element_indices'], batch['element_fractions'],
+                      batch['element_mask'], batch['magpie'], batch['tc'])
+        z, hv, st = enc_out['z'], enc.heads_pred_for_decoder(enc_out), stoich_conditioning(batch)
+        two = lambda x: torch.cat([x, x])
+        gmask = torch.arange(2 * b, device=dev) < b
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        both = rl._rollout(dec, two(z), two(st), two(hv),
+                           torch.Generator(device=dev).manual_seed(SEED), rlcfg, luts,
+                           greedy=False, temperature=temp,
+                           memory=two(dec.build_memory(z, st, hv)), greedy_mask=gmask)
+        torch.cuda.synchronize()
+        t_rollout = time.perf_counter() - t0
+        trace_batch(torch, lambda: rl._rollout(
+            dec, two(z), two(st), two(hv), torch.Generator(device=dev).manual_seed(SEED), rlcfg,
+            luts, greedy=False, temperature=temp, memory=two(dec.build_memory(z, st, hv)),
+            greedy_mask=gmask), f'one fused SCST rollout of {2 * b} rows',
+            own='decode_attention_kernel')
+    n = steps_run(both['tokens'], EOS_ID)
+    # (c) the sampled half's log-probs against the TF re-score, which runs
+    # no K1; timed with its backward, as the step runs it
+    t0 = time.perf_counter()
+    lp = rl.rescore_log_probs(dec, z, st, hv, both['tokens'][b:], rlcfg, luts, temperature=temp)
+    (lp * both['mask'][b:]).sum().backward()
+    torch.cuda.synchronize()
+    t_rescore = time.perf_counter() - t0
+    dec.zero_grad(set_to_none=True)
+    print(f'rl: parts of an SCST step of {b} (host clock, synchronised): the fused rollout of '
+          f'{2 * b} rows {t_rollout * 1e3:.1f} ms ({n} steps, {t_rollout / n * 1e3:.2f} ms a '
+          f'step), the TF re-score of {b} rows with its backward {t_rescore * 1e3:.1f} ms')
+    lp = lp.detach()
+    with torch.no_grad():
+        # where the rollout ran: after a row's EOS it keeps log-prob 0
+        live = both['mask'][b:, :n] > 0
+        got, want_lp = both['log_probs'][b:, :n][live], lp[:, :n][live]
+        err = (got - want_lp).abs()
+        print(f'rl: rollout ({n} steps) vs TF re-score, sampled half of {b}, {live.sum().item()} '
+              f'live positions: max_abs_err {err.max().item():.3e} (tol {RESCORE_TOL} + '
+              f'{RESCORE_TOL} relative)')
+        check(bool((err <= RESCORE_TOL + RESCORE_TOL * want_lp.abs()).all()),
+              'rl: the rollout log-probs disagree with the TF re-score')
+        # (d) the greedy half against a greedy rollout of the plain path
+        plain = FormulaDecoder(dataclasses.replace(cfg, pallas_decode=False), device=dev).eval()
+        plain.load_state_dict(dec.state_dict())
+        want = generate_with_kv_cache(plain, z, st, hv, None, rl._gen_cfg(rlcfg, greedy=True),
+                                      type_masks=luts['type_masks'])
+    ties = compare_streams({'generated': both['tokens'][:b], 'margin': want['margin']},
+                           {'generated': want['tokens'], 'margin': want['margin']},
+                           EOS_ID, 'rl greedy half vs plain greedy')
+    print(f'rl: greedy half of the K1 rollout equals the plain path\'s greedy rollout; '
+          f'near-tie divergences {ties}')
+    state.encoder.train()
+    state.decoder.train()
 
 
 def main() -> int:
@@ -918,11 +1201,15 @@ def main() -> int:
     launches, batches = e2e_phase(torch, dev)
     k2_rows, k2_err, k2_launches = k2_phase(torch, dev)
     train_phase(torch, dev, batches)
+    rl_results = rl_phase(torch, dev, batches)
 
+    k1_paths = {'eval': launches, 'rl scst': rl_results['scst'][1],
+                'rl rloo': rl_results['rloo'][1]}
+    launches = sum(k1_paths.values())
     print(f'total: {time.perf_counter() - t_start:.1f} s')
     print(f'kernels: ["K1 decode_step_attention", "K2 flash_attention", "K2 flash_attention '
-          f'bf16"] launches: {{"K1 decode_step_attention": {launches}, "K2 flash_attention": '
-          f'{k2_launches[torch.float32]}, "K2 flash_attention bf16": '
+          f'bf16"] launches: {{"K1 decode_step_attention": {launches} {k1_paths}, '
+          f'"K2 flash_attention": {k2_launches[torch.float32]}, "K2 flash_attention bf16": '
           f'{k2_launches[torch.bfloat16]}}}')
     print(json.dumps({'kernels': [{
         'name': 'K1 decode_step_attention', 'route': 'cuda',

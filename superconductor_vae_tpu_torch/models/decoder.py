@@ -234,18 +234,19 @@ class FormulaDecoder(nn.Module):
     def layers(self) -> List[DecoderLayer]:
         return [getattr(self, f'layer_{i}') for i in range(self.cfg.num_layers)]
 
-    def _drop(self, x):
-        return F.dropout(x, self.cfg.dropout, self.training)
+    def _drop(self, x, deterministic: bool = False):
+        return F.dropout(x, self.cfg.dropout, self.training and not deterministic)
 
     # -- heads ---------------------------------------------------------------
-    def output_heads(self, h) -> Dict[str, torch.Tensor]:
-        """Hidden states -> (vocab logits, stop, type, site-dup) heads."""
-        y = self._drop(_gelu(self.out_d1(self.out_ln(h))))
+    def output_heads(self, h, deterministic: bool = False) -> Dict[str, torch.Tensor]:
+        """Hidden states -> (vocab logits, stop, type, site-dup) heads.
+        Dropout runs in train mode unless ``deterministic``."""
+        y = self._drop(_gelu(self.out_d1(self.out_ln(h))), deterministic)
         logits = self.out_d2(y)
         stop = self.stop_d2(_gelu(self.stop_d1(h)))[..., 0]
         dup = self.dup_d2(_gelu(self.dup_d1(h)))[..., 0]
-        t = self._drop(_gelu(self.type_d1(self.type_ln(h))))
-        t = self._drop(_gelu(self.type_d2(t)))
+        t = self._drop(_gelu(self.type_d1(self.type_ln(h))), deterministic)
+        t = self._drop(_gelu(self.type_d2(t)), deterministic)
         return {'logits': logits, 'stop_logits': stop,
                 'type_logits': self.type_d3(t), 'site_dup_logits': dup}
 
@@ -288,12 +289,14 @@ class FormulaDecoder(nn.Module):
         token: [B] current input token; position: int;
         k_caches/v_caches: ``init_cache``'s [L, ...] tensors, updated IN
         PLACE; memory_kvs: per-layer (mk, mv).
-        Returns (head outputs for this position, k_caches, v_caches)."""
+        Returns (head outputs for this position, k_caches, v_caches).
+        Runs without dropout in either mode, as a rollout inside a train
+        step must."""
         x = (self.token_embedding(token) + self.pos_table[position])[:, None, :]
         for i, layer in enumerate(self.layers):
             x, _, _ = layer.step(x, k_caches[i], v_caches[i], memory_kvs[i],
                                  position, self.cfg.max_len)
-        heads = self.output_heads(x)
+        heads = self.output_heads(x, deterministic=True)
         return {k: v[:, 0] for k, v in heads.items()}, k_caches, v_caches
 
     def init_cache(self, batch_size: int) -> Tuple[torch.Tensor, torch.Tensor]:

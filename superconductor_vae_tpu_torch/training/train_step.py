@@ -1,13 +1,15 @@
-"""The teacher-forced multi-task train step (port of training/train_step.py).
+"""The multi-task train step (port of training/train_step.py).
 
 One step: encoder forward in train mode, the decoder's conditioning
 (``heads_pred_for_decoder``, ``stoich_conditioning``), the decoder's
-teacher-forced forward, the physics-Z loss through the learnable Magpie
-projection, the 17-term ``multitask_loss`` and the theory loss (at its
-weight, 0 by default); then backward, and a separate global-norm clip and
-AdamW update for each of three parameter groups: the encoder, the decoder
-and the physics-Z projection, as the JAX step runs ``tx_enc``, ``tx_dec``
-and a second ``tx_enc`` state.
+teacher-forced forward, with ``rl_enabled`` the SCST or RLOO loss
+(ops/rl.py: rollouts without gradient, a TF re-score with it), the
+physics-Z loss through the learnable Magpie projection, the 17-term
+``multitask_loss`` and the theory loss (at its weight, 0 by default); then
+backward, and a separate global-norm clip and AdamW update for each of
+three parameter groups: the encoder, the decoder and the physics-Z
+projection, as the JAX step runs ``tx_enc``, ``tx_dec`` and a second
+``tx_enc`` state.
 
 Differences from the JAX step, all in how and none in what it computes:
 - the state holds ``nn.Module``s and ``torch.optim.AdamW``s and is updated
@@ -15,7 +17,11 @@ Differences from the JAX step, all in how and none in what it computes:
 - dropout masks come from torch's generator, seeded from the step's seed
   and the state's step count (the counterpart of
   ``jax.random.fold_in(rng, state.step)``), so they cannot equal JAX's;
-- ``dyn`` holds plain numbers rather than traced scalars.
+- the rollouts sample from a ``torch.Generator`` on the models' device,
+  seeded from the same pair on a stream of its own (the counterpart of
+  the ``rl_rng`` half of ``jax.random.split``);
+- ``dyn`` holds plain numbers rather than traced scalars
+  (``entropy_pos_w`` a [T] tensor).
 The options whose paths are not ported yet raise ``NotImplementedError``
 (``check_supported``).
 """
@@ -33,6 +39,7 @@ from ..models import FormulaDecoder, MaterialsEncoder, init_params
 from ..models.config import ModelConfig
 from ..ops.losses import multitask_loss, tc_kelvin
 from ..ops.physics_z_loss import init_magpie_proj, physics_z_loss
+from ..ops.rl import rloo_loss, scst_loss
 from ..ops.theory import theory_loss
 from ..tokenizer import FractionAwareTokenizer
 from ..utils.device import resolve_device
@@ -63,12 +70,10 @@ def stoich_conditioning(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.cat([batch['element_fractions'] * em, count], dim=1)
 
 
-def check_supported(tcfg: TrainConfig, rl_enabled: bool = False) -> None:
+def check_supported(tcfg: TrainConfig) -> None:
     """Raises ``NotImplementedError`` for a config whose step needs a part
     of the JAX step that is not ported yet, naming the part."""
     missing = []
-    if rl_enabled:
-        missing.append('rl_enabled (SCST/RLOO rollouts: the RL slice)')
     if tcfg.hungarian_enabled:
         missing.append('hungarian_enabled (set decoder and Hungarian matching: '
                        'the set-decoder slice)')
@@ -197,22 +202,47 @@ def dropout_seed(seed: int, step: int) -> int:
     return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
 
 
+def rollout_seed(seed: int, step: int) -> int:
+    """The seed of the rollouts' generator at step ``step``: a stream of
+    its own, apart from ``dropout_seed``'s."""
+    return int(np.random.SeedSequence([seed, step]).spawn(1)[0].generate_state(1)[0])
+
+
 def train_loss(state: TrainState, tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
-               batch: Mapping[str, torch.Tensor], dyn: Mapping[str, float]
+               batch: Mapping[str, torch.Tensor], dyn: Mapping[str, float],
+               generator: Optional[torch.Generator] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The JAX step's ``loss_fn`` without rollouts: (total, metrics)."""
+    """The JAX step's ``loss_fn``: (total, metrics).  With a ``generator``
+    the RL branch runs, its rollouts sampling from it."""
     enc, dec = state.encoder, state.decoder
     enc_out = enc(batch['element_indices'], batch['element_fractions'],
                   batch['element_mask'], batch['magpie'], batch['tc'])
     heads_vec = enc.heads_pred_for_decoder(enc_out)
     stoich = stoich_conditioning(batch)
     dec_out = dec(enc_out['z'], batch['tokens'], stoich, heads_vec)
+    rl = reward_mean = None
+    if generator is not None:
+        # SCST or RLOO on the batch's targets, superconductors weighted 1
+        kwargs = dict(family_predictions=enc_out['family_composed_14'],
+                      sc_weight=(batch['is_sc'] == 1).float(),
+                      temperature=dyn['rl_temperature'])
+        if tcfg.rl.method == 'rloo':
+            kwargs['entropy_weight'] = dyn['entropy_weight']
+        if 'entropy_pos_w' in dyn:
+            kwargs['position_entropy_w'] = dyn['entropy_pos_w']
+        rl_fn = scst_loss if tcfg.rl.method == 'scst' else rloo_loss
+        rl, reward_mean, _, rl_extras = rl_fn(dec, enc_out['z'], stoich, heads_vec,
+                                              batch['tokens'][:, 1:], generator, tcfg.rl,
+                                              luts, **kwargs)
     pz = None
     if tcfg.use_physics_z:
         pz = physics_z_loss(enc_out['z'], batch['comp_targets'], batch['magpie'],
                             batch['tc'], proj=state.pz_proj)['total']
     total, metrics = multitask_loss(tcfg.loss, enc_out, dec_out, batch,
-                                    luts['type_table'], dyn=dyn, physz_loss=pz)
+                                    luts['type_table'], rl_loss=rl,
+                                    rl_reward_mean=reward_mean, dyn=dyn, physz_loss=pz)
+    if generator is not None:
+        metrics['reward_var'] = rl_extras['reward_var']
     if tcfg.use_theory_loss:
         th = theory_loss(tc_kelvin(enc_out['tc_pred'], tcfg.loss), batch['family'],
                          batch['element_fractions'], batch['element_indices'],
@@ -232,8 +262,11 @@ def make_train_step(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
     [B] and comp_targets [B, 15] on the models' device.  ``metrics`` are
     detached scalars on the device (reading one waits for the step):
     ``multitask_loss``'s, ``theory_loss`` and ``grad_norm``, the global
-    norm of the encoder and decoder gradients before clipping."""
-    check_supported(tcfg, rl_enabled)
+    norm of the encoder and decoder gradients before clipping.  With
+    ``rl_enabled`` the step adds the SCST or RLOO loss (``tcfg.rl.method``)
+    at ``dyn['rl_w']``, and its mean reward and ``reward_var`` to the
+    metrics."""
+    check_supported(tcfg)
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor], seed: int,
              dyn: Mapping[str, float]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -242,11 +275,15 @@ def make_train_step(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
         groups = state.groups()
         device = groups[0][0][0].device
         cuda = [device] if device.type == 'cuda' else []
+        generator = None
+        if rl_enabled:
+            generator = torch.Generator(device=device).manual_seed(
+                rollout_seed(seed, state.step))
         with torch.random.fork_rng(devices=cuda):
             torch.manual_seed(dropout_seed(seed, state.step))
             for _, opt in groups:
                 opt.zero_grad(set_to_none=True)
-            total, metrics = train_loss(state, tcfg, luts, batch, dyn)
+            total, metrics = train_loss(state, tcfg, luts, batch, dyn, generator)
             total.backward()
         norms = []
         for params, opt in groups:

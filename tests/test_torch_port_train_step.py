@@ -261,11 +261,11 @@ def test_clip_is_active_for_encoder_and_decoder_only(runs):
             assert 0.05 < norm / runs['clip'] < 0.99
 
 
-@pytest.mark.parametrize('i', [0, 1])
-def test_gradients_moments_and_params_match_jax(runs, i):
-    before, params, moments, _ = runs['port'][i]
-    jprev, jnext = runs['jax_states'][i], runs['jax_states'][i + 1]
-    lr, wd, t = runs['lr'], runs['wd'], i + 1
+def check_moments_and_updates(before, params, moments, jprev, jnext, lr, wd, t):
+    """The port's step against the JAX step from the same state ``jprev``:
+    the AdamW moments of each group against ``jnext``'s, the clipped
+    gradient's norm (at t=1), and each parameter change against the AdamW
+    rule on the port's own moments and against JAX's change."""
     for g, name in enumerate(('enc', 'dec', 'pz')):
         adam = _adam_states(getattr(jnext, f'{name}_opt'))
         assert int(adam.count) == t
@@ -274,7 +274,7 @@ def test_gradients_moments_and_params_match_jax(runs, i):
         got_nu = {k: v[1] for k, v in moments[g].items()}
         _tree_close(got_mu, want_mu, f'{name} mu, step {t}')
         _tree_close(got_nu, want_nu, f'{name} nu, step {t}')
-        if i == 0:
+        if t == 1:
             # mu / (1 - b1) is the clipped gradient; its norm per tree is
             # grad_clip (enc, dec) or the projection's own
             norms = [np.sqrt(sum((v.astype(np.float64) ** 2).sum() for v in tree.values()))
@@ -310,6 +310,13 @@ def test_gradients_moments_and_params_match_jax(runs, i):
             checked += int(same.sum())
         n = sum(v.size for v in want_delta.values())
         assert checked >= 0.95 * n, f'{name} step {t}: only {checked} of {n} updates checked'
+
+
+@pytest.mark.parametrize('i', [0, 1])
+def test_gradients_moments_and_params_match_jax(runs, i):
+    before, params, moments, _ = runs['port'][i]
+    check_moments_and_updates(before, params, moments, runs['jax_states'][i],
+                              runs['jax_states'][i + 1], runs['lr'], runs['wd'], i + 1)
 
 
 def test_clip_by_global_norm_is_the_optax_rule():
@@ -350,15 +357,12 @@ def test_train_config_mirrors_jax():
 
 @pytest.mark.parametrize('option', [
     dict(hungarian_enabled=True), dict(use_round_trip=True), dict(soft_token_enabled=True),
-    dict(accumulation_steps=2), 'rl_enabled'])
+    dict(accumulation_steps=2)])
 def test_unported_options_raise(option):
     tc = TrainConfig(**TCFG)
     luts = build_luts(default_tokenizer(max_len=16), 'cpu')
     with pytest.raises(NotImplementedError, match='slice'):
-        if option == 'rl_enabled':
-            make_train_step(tc, luts, rl_enabled=True)
-        else:
-            make_train_step(dataclasses.replace(tc, **option), luts)
+        make_train_step(dataclasses.replace(tc, **option), luts)
 
 
 def test_dropout_masks_follow_seed_and_step():
