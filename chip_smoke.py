@@ -23,16 +23,27 @@
    bench.py's probe (B=512, T=38, position 19, bfloat16); and the kernel
    alone at every position 0..28 at B=256 and at B=1024, whose means are
    what the eval path and the SCST rollout (RL batch 512) pay a launch.
-4. End-to-end phase: the main path of true-AR evaluation at run4's widths
+4. Data phase: data/processed/jarvis_merged.csv.gz through the port's
+   data/pipeline.py load_dataset with run4's normalisation
+   (ckpt_skew_transform of its meta.json: rank-gauss), timed on the host,
+   with numpy's and scipy's versions; its arrays are held to constants that
+   the CPU tests hold bit-equal to the JAX package's load_dataset (a sha256
+   of the integer arrays and the formulas; float sums and three rows).
+5. End-to-end phase: the main path of true-AR evaluation at run4's widths
    (results/run4/ckpt_snapshot/meta.json: 12 layers, d_model 576,
-   magpie_dim 78) with weights from a seed, float32: 1,024 real rows of
-   data/processed/jarvis_merged.csv.gz in 4 batches of 256 through
-   training/evaluate.py eval_batch (encoder, memory, greedy KV-cache
-   generation with run4's eval gates and early exit, TF forward), once
-   through K1 and once through the plain attention path.  The two token
-   streams must agree except where the top two logits were within 1e-4;
-   8 rows also run on the CPU and must agree with the card.
-5. K2 phase: the flash-attention forward against its plain version at the
+   magpie_dim 78) with weights from a seed, float32: the first 1,024 rows
+   of the loaded corpus in 4 batches of 256 through training/evaluate.py
+   eval_batch (encoder, memory, greedy KV-cache generation with run4's
+   eval gates and early exit, TF forward), once through K1 and once through
+   the plain attention path.  The two token streams must agree except where
+   the top two logits were within 1e-4; 8 rows also run on the CPU and
+   must agree with the card.
+6. Whole-corpus phase: training/evaluate.py evaluate_autoregressive over
+   all 26,917 kept rows (106 batches of 256, the last padded) through K1,
+   with the same weights: formulas/s, the decode steps summed over the
+   batches, K1 launched 12 times a decode step, and the first 1,024 rows'
+   exact match equal to the e2e phase's.
+7. K2 phase: the flash-attention forward against its plain version at the
    JAX tests' shapes ((T, Dh) in (128, 64), (256, 72), (128, 128), T=100
    at Dh=72) and at B=64, H=8, Dh=72, T=256, in float32 and bfloat16, and
    in both over Dh in {64, 72, 80, 96, 128, 200, 256} and a ragged Dh (66
@@ -45,14 +56,14 @@
    K2's entry point, in each dtype: K2 at T >= 128 (its launches are the
    ones reported), the plain attention at T=29, a refusal for inputs that
    require grad.
-6. Train phase: the teacher-forced train step (training/train_step.py) at
+8. Train phase: the teacher-forced train step (training/train_step.py) at
    run4's widths with weights from a seed, float32, dropout 0.1, on the
    same 1,024 rows: a warm-up step, then 8 timed steps (train samples/s,
    peak memory, first and last loss), every metric finite, every group of
    parameters changed, no K1 or K2 launch; one step under the profiler;
    one step of 8 rows with dropout off on the card and on the CPU from the
    same weights, whose metrics, AdamW moments and updates must agree.
-7. RL phase: the RL train step (training/train_step.py, rl_enabled) at
+9. RL phase: the RL train step (training/train_step.py, rl_enabled) at
    run4's widths with weights from a seed, float32, dropout 0.1, K1 in
    the rollouts, bench.py's RL TrainConfig (rl.max_len = max_len, rl_w 1)
    on 512 of the rows, the stop and type heads fixed as in the e2e phase:
@@ -67,7 +78,7 @@
    weights, the CPU step fed the card's rollout: metrics, AdamW moments
    and updates agree.  One SCST step and one fused rollout under the
    profiler; the rollout and the TF re-score with its backward timed alone.
-8. Prints the kernels' JSON line, then as its last line
+10. Prints the kernels' JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -555,41 +566,144 @@ def k2_phase(torch, dev):
 
 # -- end-to-end phase ---------------------------------------------------------
 
-def make_batches(torch, rows, tok, magpie_dim, dev):
-    """Batches of BATCH rows from CSV rows, with the eval path's keys and
-    the train step's (is_sc, hp, family, comp_targets, label), as the data
-    pipeline builds them.  Tc: log1p, z-scored over the superconductors
-    among the rows; Magpie: NaN -> column mean, z-scored over the same
-    rows; compositional targets z-scored over the same rows.  Stand-ins for
-    the training corpus's statistics (NormStats), which come with the data
-    slice (weights here are random anyway)."""
-    import numpy as np
-    from superconductor_vae_tpu_torch.data import (
-        category_to_label, composition_slots, normalized_compositional_targets)
-    from superconductor_vae_tpu_torch.models.family_classifier import classify_batch
+# The port's arrays of the whole corpus as run4's checkpoint loads it
+# (rank-gauss), which tests/test_torch_port_dataset.py holds bit-equal to
+# the JAX package's load_dataset on the CPU and to these constants: a sha256
+# of the integer and boolean arrays and the formulas, exact; for each float
+# array the float64 sum and sum of magnitudes, to 1e-6 of the sum of
+# magnitudes, and three rows (CORPUS_ROWS), to 1e-6 relative plus 1e-6
+# absolute: another numpy or scipy may round the column statistics an ulp
+# apart, which moves every z-scored value by about 1e-7
+CORPUS_ROWS_KEPT = 26917
+CORPUS_SHA256 = '13f0c858fe638d155776af3582ca8f346e9d56805982910dc64575d41fff120b'
+CORPUS_ROWS = (0, 13458, 26916)
+CORPUS_FLOATS = {
+    'tc': (-8240.930919843318, 28571.448894020927, [
+        [-2.19841671],
+        [1.32253766],
+        [-0.890461087],
+    ]),
+    'element_fractions': (26917.00036749116, 26917.00036749116, [
+        [0.444444448, 0.0666666701, 0.111111112, 0.377777785, 0, 0, 0, 0, 0, 0, 0, 0],
+        [0.154559508, 0.231839254, 0.077279754, 0.536321461, 0, 0, 0, 0, 0, 0, 0, 0],
+        [0.166666672, 0.483333319, 0.183333337, 0.166666672, 0, 0, 0, 0, 0, 0, 0, 0],
+    ]),
+    'comp_targets': (2798.0128301659934, 314709.92718416674, [
+        [0.0208282936, 1.16424489, -0.0868321359, 1.00861943, 1.66717672, -1.16699553,
+         -0.73480773, 0.906643331, -0.395188242, -0.975531757, -0.283436686, -0.054716412,
+         -1.18707776, 1.32524228, 0.0424972251],
+        [0.0208282936, -0.521149218, -0.0868321359, -0.540695846, 0.108663633, 0.942156374,
+         0.975056767, -0.700276434, 1.12316513, 0.797903538, -0.977172196, -0.222352445,
+         0.914791346, -0.803835511, 1.14073133],
+        [0.0208282936, -0.267065823, -0.0868321359, -0.246617973, 0.628167987, -0.481807679,
+         -0.320955366, -0.133842349, -0.583020926, -0.907515407, -0.645994663, 0.220564097,
+         0.132665947, -0.320593417, -0.0616949089],
+    ]),
+    'magpie': (3498.317985982171, 1659685.8659185432, [
+        [-1.15410542, -0.536123514, 0.168230951, -0.91697371, -0.75065124, -0.674970269,
+         0.881101489, 0.949757338, 0.029026255, 0.502057016, 0.224006563, -0.310120881,
+         -1.17311931, -0.719220579, 0.043170061, -1.12419868, -0.978858232, -0.70831883,
+         -1.720204, -0.572180331, -0.769259274, -0.511782169, -0.156622335, -1.51177132,
+         1.31667876, -1.06862462, 1.48897529, 0.762574852, -0.700607061, 1.30283475, 0.436264694,
+         1.11791408, -0.166177452, 0.393497825, 0.530791819, -0.573126793, -0.827875912,
+         -1.02629244, 0.37546286, -0.890710771, -0.825340986, -0.291592032, -0.995690882,
+         0.0910718888, 0.173980355, 0.588581681, 0.409865499, -1.4547888, -1.01737475,
+         -1.01651216, -0.384934276, -0.681735754, -0.261282086, -0.798931658, -0.157313094,
+         0.133392662, 0.0448341183, 0.491640002, 0.522493541, 0.320752144, 1.1510216, 3.34457636,
+         -0.687817514, 1.74195433, 1.95258796, -0.840114057, -0.0161986761, -0.419452846,
+         -0.490871489, -0.5834319, -0.629241288, -0.658665061, 0.317110926, -0.982204914,
+         0.383050591, 0.995008647, 1.64544058, -0.761874497],
+        [0.948109984, 1.11665606, -0.760114968, 0.893214047, 0.96293056, 1.13007593,
+         -0.705582082, 1.11249459, -0.817949712, 1.00125241, 1.05899239, -0.997539639,
+         0.921140313, 1.11778617, -0.702276111, 0.790225267, 0.8702088, 1.10882628, 0.478405714,
+         0.210667834, -0.346165806, -0.0104515972, 0.136903226, 0.560725868, -0.795792222,
+         0.289053351, -0.686242521, -0.880972922, -0.242217973, -0.890181422, -0.647366226,
+         -0.0358344801, -0.505391479, -0.422905415, -0.107744075, -0.77594012, 0.332395524,
+         1.18027842, -0.495416462, 0.990483344, 1.01214635, -0.55397141, 0.851893425,
+         0.515587449, -0.568830013, 0.588581681, 0.712379158, 0.0434924923, -0.56331259,
+         0.57207787, -0.384934276, 0.480945587, 0.6261127, -0.798931658, -0.330818564,
+         -0.238379017, -0.114476338, 0.179987371, 0.209157079, -0.788930953, -0.530828953,
+         0.43384856, -0.543098927, 0.0287479647, 0.383185118, -0.744837999, -0.0161986761,
+         -0.314909577, -0.253495187, -0.173360288, -0.136773765, -0.112925187, 0.336084247,
+         -0.542248011, -0.280190885, -0.551027417, 0.0896056816, -0.55848664],
+        [-0.471170932, -0.339388162, 0.168230951, -0.362238944, -0.335899144, -0.48157233,
+         -0.146281213, 0.179384097, 0.0507435873, -0.277935743, -0.170714036, -0.116233535,
+         0.141845778, -0.212513834, 0.445474327, -0.336784512, -0.41065532, 0.0390838981,
+         -0.393389165, 0.312206119, -0.769259274, 1.00949681, 1.27839148, -0.693680346,
+         -0.316319495, 1.23581529, -0.32301566, 0.629669845, 1.00218189, -0.638868451,
+         -0.515711129, 0.301051527, -0.360013992, 0.607091844, 0.889179885, -0.689020038,
+         -1.56188738, -1.22754157, 0.037489675, -1.54241014, -1.36995018, -0.551928401,
+         -0.924830377, -0.984880388, 0.173980355, -1.26337028, -1.10270286, -0.455934584,
+         -1.31653786, -1.5148778, -0.384934276, -2.61953807, -1.74027336, -0.798931658,
+         0.346651137, 1.14029455, 0.364718288, 1.27077162, 1.30583453, -0.151054025,
+         -0.277279764, 0.560494959, -0.125453562, 0.596279502, 0.595799804, -0.469879538,
+         -0.0161986761, -0.680329025, -0.633762658, -0.537876666, -0.489440173, -0.457928836,
+         0.622439742, -1.78743958, 1.5848732, -0.257572025, 0.608217299, -0.0839149058],
+    ]),
+}
 
-    check(rows['magpie'].shape[1] == magpie_dim,
-          f'{rows["magpie"].shape[1]} feature columns, model wants {magpie_dim}')
-    tc = np.log1p(rows['tc'])
-    ref = tc[rows['is_sc'] == 1] if (rows['is_sc'] == 1).any() else tc
-    tc = ((tc - ref.mean()) / (ref.std() + 1e-8)).astype(np.float32)
-    mg = rows['magpie'].astype(np.float64)
-    mg = np.where(np.isnan(mg), np.nan_to_num(np.nanmean(mg, axis=0))[None], mg)
-    mg = ((mg - mg.mean(0)) / (mg.std(0) + 1e-8)).astype(np.float32)
-    idx, frac, mask = composition_slots(rows['formula'])
-    tokens = tok.encode_batch(rows['formula'])
-    is_sc = rows['is_sc']
-    full = {'element_indices': idx.astype(np.int64), 'element_fractions': frac,
-            'element_mask': mask, 'magpie': mg, 'tc': tc,
-            'tokens': tokens.astype(np.int64),
-            'is_sc': is_sc.astype(np.int64), 'hp': rows['hp'],
-            'family': np.where(is_sc == 1, classify_batch(idx, mask), 0).astype(np.int64),
-            'comp_targets': normalized_compositional_targets(idx, frac, mask)[0],
-            'label': np.array([category_to_label(c, requires_high_pressure=int(h))
-                               for c, h in zip(rows['category'], rows['hp'])], np.int64)}
-    n = len(rows['formula'])
-    return [{k: torch.as_tensor(v[i:i + BATCH]).to(dev) for k, v in full.items()}
-            for i in range(0, n, BATCH)]
+
+def corpus_digest(ds):
+    """sha256 of the dataset's tokens, element slots, labels and formulas."""
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+    for name in ('tokens', 'element_indices', 'element_mask', 'is_sc', 'label', 'family'):
+        a = np.ascontiguousarray(getattr(ds, name))
+        h.update(f'{name} {a.dtype} {a.shape}\n'.encode())
+        h.update(a.tobytes())
+    h.update('\n'.join(ds.formulas).encode())
+    return h.hexdigest()
+
+
+def check_corpus(ds):
+    """The dataset against CORPUS_*; returns the worst float error over its
+    tolerance."""
+    import numpy as np
+    check(len(ds) == CORPUS_ROWS_KEPT, f'{len(ds)} rows kept, expected {CORPUS_ROWS_KEPT}')
+    digest = corpus_digest(ds)
+    check(digest == CORPUS_SHA256, f'corpus sha256 {digest} != {CORPUS_SHA256}')
+    worst = 0.0
+    for name, (total, magnitude, rows) in CORPUS_FLOATS.items():
+        a = getattr(ds, name).astype(np.float64)
+        for got, want in ((a.sum(), total), (np.abs(a).sum(), magnitude)):
+            worst = max(worst, abs(got - want) / (1e-6 * magnitude))
+        for r, want in zip(CORPUS_ROWS, rows):
+            err = np.abs(np.atleast_1d(a[r]) - want) / (1e-6 + 1e-6 * np.abs(want))
+            worst = max(worst, float(err.max()))
+        check(worst <= 1.0, f'corpus {name} differs from CORPUS_FLOATS: error / tolerance '
+              f'{worst:.3f}')
+    return worst
+
+
+def data_phase(torch, dev):
+    """The corpus through the port's load_dataset with run4's normalisation
+    (ckpt_skew_transform of its meta.json), checked against CORPUS_*; and
+    its first N_BATCHES batches of BATCH rows on the card, with the eval
+    path's keys and the train step's."""
+    import numpy as np
+    import scipy
+    from superconductor_vae_tpu_torch.checkpoint import ckpt_skew_transform
+    from superconductor_vae_tpu_torch.data import load_dataset
+    from superconductor_vae_tpu_torch.models import config_from_meta
+    from superconductor_vae_tpu_torch.training.evaluate import _to_device
+
+    meta = json.loads(META.read_text())
+    cfg = config_from_meta(meta['model_config'])
+    transform = ckpt_skew_transform(meta)
+    t0 = time.perf_counter()
+    ds = load_dataset(CSV, max_len=cfg.max_len, skew_transform=transform)
+    secs = time.perf_counter() - t0
+    print(f'data: numpy {np.__version__}, scipy {scipy.__version__}; load_dataset '
+          f'({transform}) {secs:.2f} s on the host: {len(ds)} rows, magpie_dim {ds.magpie_dim}')
+    check(ds.magpie_dim == cfg.magpie_dim,
+          f'{ds.magpie_dim} feature columns, model wants {cfg.magpie_dim}')
+    worst = check_corpus(ds)
+    print(f'data: sha256 {CORPUS_SHA256[:16]}... equal; float sums and rows {CORPUS_ROWS}: '
+          f'worst error / tolerance {worst:.3f}')
+    batches = [_to_device(ds.batch(np.arange(i * BATCH, (i + 1) * BATCH)), dev)
+               for i in range(N_BATCHES)]
+    return ds, batches
 
 
 def steps_run(generated, eos_id):
@@ -672,19 +786,24 @@ def fix_rollout_heads(torch, decoder):
     return decoder
 
 
-def e2e_phase(torch, dev):
+def e2e_phase(torch, dev, ds, batches):
+    """The eval path on the data phase's batches, through K1 and through the
+    plain attention path, then 8 rows on the CPU, and one batch under the
+    profiler.  Returns K1's launches, the encoder and the K1 decoder, and the
+    true-AR exact match of each row."""
     import numpy as np
-    from superconductor_vae_tpu_torch.data import read_csv_rows
     from superconductor_vae_tpu_torch.models import (
         FormulaDecoder, MaterialsEncoder, config_from_meta, init_params)
     from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
     from superconductor_vae_tpu_torch.tokenizer import EOS_ID, default_tokenizer
     from superconductor_vae_tpu_torch.training import (
-        build_luts, eval_batch, eval_generation_config)
+        build_luts, eval_batch, eval_generation_config, eval_train_config)
+    from superconductor_vae_tpu_torch.training.evaluate import _exact_match
 
     meta = json.loads(META.read_text())
     cfg = config_from_meta(meta['model_config'], pallas_decode=True)
-    gcfg = eval_generation_config(cfg.max_len, meta['eval_gating'])
+    gcfg = eval_generation_config(eval_train_config(cfg.max_len, meta['eval_gating']),
+                                  cfg.max_len)
     print(f'e2e: run4 widths {dataclasses.asdict(cfg)}')
     print(f'e2e: {gcfg}')
 
@@ -699,9 +818,6 @@ def e2e_phase(torch, dev):
 
     tok = default_tokenizer(max_len=cfg.max_len)
     type_masks = build_luts(tok, device=dev)['type_masks']
-    rows = read_csv_rows(CSV, BATCH * N_BATCHES)
-    check(len(rows['formula']) == BATCH * N_BATCHES, 'too few CSV rows')
-    batches = make_batches(torch, rows, tok, cfg.magpie_dim, dev)
 
     def run(dec):
         torch.cuda.synchronize()
@@ -759,7 +875,6 @@ def e2e_phase(torch, dev):
 
     gen_all = torch.cat([o['generated'] for o in outs]).cpu().numpy()
     tgt = np.concatenate([bt['tokens'][:, 1:].cpu().numpy() for bt in batches])
-    from superconductor_vae_tpu_torch.training.evaluate import _exact_match
     exact = float(_exact_match(gen_all, tgt).mean())
     n = BATCH * N_BATCHES
     print(f'e2e: {n} formulas in {wall:.3f} s through K1 = {n / wall:.1f} formulas/s '
@@ -767,8 +882,49 @@ def e2e_phase(torch, dev):
           f'K1 {walls[1]:.3f} s, plain {plain_walls[1]:.3f} s); '
           f'near-tie divergences {ties}; true-AR exact (random weights) {exact:.4f}')
     for r in range(3):
-        print(f'e2e: {rows["formula"][r]!r} -> {tok.decode(gen_all[r])!r}')
-    return launches, batches
+        print(f'e2e: {ds.formulas[r]!r} -> {tok.decode(gen_all[r])!r}')
+    return launches, (encoder, decoder), _exact_match(gen_all, tgt)
+
+
+def corpus_phase(torch, dev, ds, encoder, decoder, eval_exact):
+    """training/evaluate.py evaluate_autoregressive over every kept row of
+    the corpus through K1, with the e2e phase's weights and run4's gates, in
+    batches of BATCH (the last padded); K1's count at 0 just before, read
+    just after, must be layers x the decode steps summed over the batches.
+    The first rows' true-AR exact match must equal the e2e phase's."""
+    import numpy as np
+    from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+    from superconductor_vae_tpu_torch.tokenizer import EOS_ID, default_tokenizer
+    from superconductor_vae_tpu_torch.training import (
+        build_luts, eval_train_config, evaluate, evaluate_autoregressive)
+
+    meta = json.loads(META.read_text())
+    cfg = decoder.cfg
+    tcfg = eval_train_config(cfg.max_len, meta['eval_gating'])
+    luts = build_luts(default_tokenizer(max_len=cfg.max_len), device=dev)
+    with CallLog(evaluate, 'generate_with_kv_cache') as log:
+        decode_step_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evaluate_autoregressive(encoder, decoder, ds, tcfg, luts, batch_size=BATCH)
+        wall = time.perf_counter() - t0        # its results are on the host: synchronised
+        launches = decode_step_attention.launches
+    steps = [steps_run(o['tokens'], EOS_ID) for o in log.outputs]
+    n = out['n_evaluated']
+    print(f'corpus: {n} rows in {len(steps)} batches of {BATCH} (the last padded) through K1 '
+          f'in {wall:.3f} s = {n / wall:.1f} formulas/s; decode steps summed over the batches '
+          f'{sum(steps)}; K1 launches {launches}')
+    print(f'corpus: true_ar_exact {out["ar_exact"]:.6f}, tf_exact {out["tf_exact"]:.6f}, '
+          f'tc_mae_kelvin {out["tc_mae_kelvin"]:.4f} (random weights)')
+    check(n == len(ds) == CORPUS_ROWS_KEPT, f'evaluated {n} of {len(ds)} rows')
+    check(len(steps) == -(-n // BATCH), f'{len(steps)} batches for {n} rows')
+    check(launches > 0, 'K1 was not launched over the corpus')
+    check(launches == cfg.num_layers * sum(steps),
+          f'K1 launches {launches} != layers x steps {cfg.num_layers * sum(steps)}')
+    check(np.array_equal(out['per_sample_ar_exact'][:len(eval_exact)], eval_exact),
+          'the corpus eval and the e2e phase disagree on the first rows\' exact match')
+    print(f'corpus: the first {len(eval_exact)} rows\' exact match equals the e2e phase\'s')
+    return launches
 
 
 # -- train phase --------------------------------------------------------------
@@ -944,14 +1100,16 @@ RLOO_K, N_RLOO_STEPS = 4, 2       # a [4 x 512] rollout
 RESCORE_TOL = 2e-4                # rollout log-probs against the TF re-score
 
 
-class RolloutLog:
-    """Stands in for ops/rl.py ``_rollout`` while entered: calls it and
-    keeps each rollout's output, so that a run can count the decode steps
-    it took; or, given ``replay``, returns that rollout instead (another
-    run's, moved to this run's device)."""
+class CallLog:
+    """Stands in for ``module.name`` (ops/rl.py ``_rollout``, or the eval's
+    ``generate_with_kv_cache``) while entered: calls it and keeps each
+    output, so that a run can count the decode steps it took; or, given
+    ``replay``, returns that rollout instead (another run's, moved to this
+    run's device)."""
 
-    def __init__(self, rl, replay=None):
-        self.rl, self.original, self.replay, self.outputs = rl, rl._rollout, replay, []
+    def __init__(self, module, name, replay=None):
+        self.module, self.name, self.replay, self.outputs = module, name, replay, []
+        self.original = getattr(module, name)
 
     def __call__(self, *args, **kwargs):
         if self.replay is not None:
@@ -962,11 +1120,11 @@ class RolloutLog:
         return out
 
     def __enter__(self):
-        self.rl._rollout = self
+        setattr(self.module, self.name, self)
         return self
 
     def __exit__(self, *exc):
-        self.rl._rollout = self.original
+        setattr(self.module, self.name, self.original)
 
 
 def rl_step_run(torch, step, state, batches, dyn, n_steps, rl, eos_id):
@@ -979,7 +1137,7 @@ def rl_step_run(torch, step, state, batches, dyn, n_steps, rl, eos_id):
     state, _ = step(state, batches[0], SEED, dyn)              # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with RolloutLog(rl) as log:
+    with CallLog(rl, '_rollout') as log:
         decode_step_attention.launches = 0
         flash_attention.launches = 0
         t0 = time.perf_counter()
@@ -1083,7 +1241,7 @@ def rl_phase(torch, dev, batches):
         st = create_train_state(cfg0, tcfg, seed=SEED + 2, device=where)
         fix_rollout_heads(torch, st.decoder)
         before = _group_tensors(st)
-        with RolloutLog(rl, replay=replay) as log:       # a replayed step samples nothing
+        with CallLog(rl, '_rollout', replay=replay) as log:       # a replayed step samples nothing
             st, m = make_train_step(tcfg, build_luts(tok, device=where), rl_enabled=True)(
                 st, {key: v.to(where) for key, v in small.items()}, SEED, dyn)
         return (m, before, _group_tensors(st)), (log.outputs or [replay])[0]
@@ -1198,13 +1356,17 @@ def main() -> int:
     build_report(libs, _build.nvcc())
 
     k1, k1_err = kernel_phase(torch, dev)
-    launches, batches = e2e_phase(torch, dev)
+    ds, batches = data_phase(torch, dev)
+    launches, (encoder, decoder), exact = e2e_phase(torch, dev, ds, batches)
+    corpus_launches = corpus_phase(torch, dev, ds, encoder, decoder, exact)
+    del encoder, decoder
+    torch.cuda.empty_cache()
     k2_rows, k2_err, k2_launches = k2_phase(torch, dev)
     train_phase(torch, dev, batches)
     rl_results = rl_phase(torch, dev, batches)
 
-    k1_paths = {'eval': launches, 'rl scst': rl_results['scst'][1],
-                'rl rloo': rl_results['rloo'][1]}
+    k1_paths = {'eval': launches, 'eval corpus': corpus_launches,
+                'rl scst': rl_results['scst'][1], 'rl rloo': rl_results['rloo'][1]}
     launches = sum(k1_paths.values())
     print(f'total: {time.perf_counter() - t_start:.1f} s')
     print(f'kernels: ["K1 decode_step_attention", "K2 flash_attention", "K2 flash_attention '

@@ -14,10 +14,15 @@ The trees come in as numpy arrays (``jax.tree.map(np.asarray, params)``),
 so this module needs no JAX.  Loading is strict: a missing, unexpected or
 mis-shaped parameter raises.  The physics-Z Magpie projection
 (``{'kernel': [M, 62], 'bias': [62]}``) becomes an ``nn.Linear``.
+
+A machine without the Orbax reader (tensorstore) takes the trees from an
+npz file instead (``load_params_npz``): one float32 array a leaf, keyed by
+its ``/``-joined path under ``enc_params/`` and ``dec_params/``.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -38,6 +43,22 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
             yield from _flatten(v, prefix + (k,))
         else:
             yield prefix + (k,), v
+
+
+def load_params_npz(path: str | Path) -> Tuple[Dict, Dict]:
+    """(enc_params, dec_params) as nested dicts of numpy arrays from an npz
+    file whose keys are ``enc_params/<path>`` and ``dec_params/<path>``."""
+    trees: Dict[str, Dict] = {'enc_params': {}, 'dec_params': {}}
+    with np.load(path) as npz:
+        for key in npz.files:
+            root, *mods, leaf = key.split('/')
+            if root not in trees or not mods:
+                raise KeyError(f'{path}: unexpected key {key}')
+            node = trees[root]
+            for m in mods:
+                node = node.setdefault(m, {})
+            node[leaf] = npz[key]
+    return trees['enc_params'], trees['dec_params']
 
 
 def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:

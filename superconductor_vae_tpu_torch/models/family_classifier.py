@@ -1,7 +1,8 @@
-"""Superconductor family taxonomy and the vectorized rule-based classifier
-(port of models/family_classifier.py).
+"""Superconductor family taxonomy and the rule-based classifier (port of
+models/family_classifier.py).
 
-``classify_batch`` labels ``[B, max_elements]`` atomic-number arrays with
+``RuleBasedFamilyClassifier`` applies the decision rules to one element
+set; ``classify_batch`` labels ``[B, max_elements]`` atomic-number arrays with
 the 14-class ``SuperconductorFamily`` by boolean algebra over element
 presence, on the host (numpy), as the data pipeline does.  The
 ``FINE_TO_*`` tables map the 14 classes onto the hierarchical family
@@ -11,6 +12,7 @@ head's coarse, cuprate and iron targets.
 from __future__ import annotations
 
 import enum
+from typing import Dict, Optional, Set
 
 import numpy as np
 
@@ -44,7 +46,43 @@ FINE_TO_CUPRATE_SUB = np.array(
 FINE_TO_IRON_SUB = np.array(
     [-1, -1, -1, -1, -1, -1, -1, -1, 0, 1, -1, -1, -1, -1], dtype=np.int32)
 
+_HEAVY_FERMION = {'U', 'Ce', 'Yb', 'Pu'}
 _ORGANIC = ('C', 'H', 'N', 'S')
+
+
+class RuleBasedFamilyClassifier:
+    """Element-set decision rules for the 14-class family taxonomy."""
+
+    def classify_from_elements(
+        self, elements: Set[str],
+        fractions: Optional[Dict[str, float]] = None,
+    ) -> SuperconductorFamily:
+        if {'Cu', 'O'} <= elements:
+            if 'Y' in elements and 'Ba' in elements:
+                return SuperconductorFamily.CUPRATE_YBCO
+            if 'La' in elements and ('Sr' in elements or 'Ba' in elements):
+                return SuperconductorFamily.CUPRATE_LSCO
+            if 'Bi' in elements and 'Sr' in elements:
+                return SuperconductorFamily.CUPRATE_BSCCO
+            if 'Tl' in elements and 'Ba' in elements:
+                return SuperconductorFamily.CUPRATE_TBCCO
+            if 'Hg' in elements and 'Ba' in elements:
+                return SuperconductorFamily.CUPRATE_HBCCO
+            return SuperconductorFamily.CUPRATE_OTHER
+        if 'Fe' in elements:
+            if 'As' in elements or 'P' in elements:
+                return SuperconductorFamily.IRON_PNICTIDE
+            if 'Se' in elements or 'Te' in elements:
+                return SuperconductorFamily.IRON_CHALCOGENIDE
+        if 'Mg' in elements and 'B' in elements:
+            return SuperconductorFamily.MGB2_TYPE
+        if elements & _HEAVY_FERMION:
+            return SuperconductorFamily.HEAVY_FERMION
+        if 'C' in elements and len(elements & set(_ORGANIC)) / max(len(elements), 1) > 0.5:
+            return SuperconductorFamily.ORGANIC
+        if len(elements) <= 4:
+            return SuperconductorFamily.BCS_CONVENTIONAL
+        return SuperconductorFamily.OTHER_UNKNOWN
 
 
 def classify_batch(element_indices: np.ndarray,

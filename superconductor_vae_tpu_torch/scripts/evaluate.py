@@ -1,0 +1,124 @@
+"""Checkpoint evaluation CLI (port of scripts/evaluate.py).
+
+True-AR and TF exact match, Tc error, SC and family metrics of a checkpoint
+over a corpus, on the card unless ``--cpu``:
+
+    python -m superconductor_vae_tpu_torch.scripts.evaluate \\
+        --params build/run4_params.npz \\
+        --meta results/run4/ckpt_snapshot/meta.json
+
+The Orbax snapshot cannot be read without tensorstore, so the weights come
+as an npz file (``checkpoint/from_jax.py`` ``load_params_npz``); the
+``meta.json`` beside the snapshot gives the architecture, the decode gates
+(``eval_gating``) and the corpus normalisation (``ckpt_skew_transform``).
+The flags and the summary's keys are those of the JAX package's CLI, which
+takes ``--checkpoint`` instead of ``--params`` and ``--meta``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument('--params', required=True,
+                   help='npz of the encoder and decoder params '
+                        '(enc_params/... and dec_params/... keys)')
+    p.add_argument('--meta', required=True, help="the checkpoint's meta.json")
+    p.add_argument('--csv',
+                   default='data/processed/jarvis_merged.csv.gz')
+    p.add_argument('--limit', type=int, default=None)
+    p.add_argument('--sample', choices=['head', 'random', 'stratified'],
+                   default='stratified',
+                   help='how --limit selects rows: seeded random, '
+                        'is_sc-stratified 50/50 (default), or the CSV head '
+                        'slice')
+    p.add_argument('--sample-seed', type=int, default=0)
+    p.add_argument('--batch-size', type=int, default=256)
+    p.add_argument('--max-batches', type=int, default=None,
+                   help='default: the whole corpus')
+    p.add_argument('--cpu', action='store_true')
+    p.add_argument('--errors-out', default=None,
+                   help='write per-sample error records JSONL here')
+    p.add_argument('--out', default=None, help='write summary JSON here')
+    p.add_argument('--speculative', action='store_true',
+                   help='not ported yet (A.13)')
+    p.add_argument('--pallas-decode', action='store_true',
+                   help='run the AR decode through K1, the decode-step '
+                        'attention kernel (ModelConfig.pallas_decode)')
+    args = p.parse_args(argv)
+    if args.speculative:
+        p.error('--speculative: the speculative decode is not ported yet (A.13)')
+
+    from superconductor_vae_tpu_torch.checkpoint import (
+        ckpt_skew_transform, load_params_npz, params_from_jax)
+    from superconductor_vae_tpu_torch.data import load_dataset
+    from superconductor_vae_tpu_torch.models import config_from_meta
+    from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
+    from superconductor_vae_tpu_torch.training import (
+        build_luts, eval_train_config, evaluate_autoregressive)
+
+    device = 'cpu' if args.cpu else 'cuda'
+    meta = json.loads(Path(args.meta).read_text())
+    mcfg = config_from_meta(meta['model_config'], pallas_decode=args.pallas_decode)
+    tokenizer = default_tokenizer(max_len=mcfg.max_len)
+    head_limit = args.limit if args.sample == 'head' else None
+    ds = load_dataset(args.csv, max_len=mcfg.max_len, tokenizer=tokenizer,
+                      limit=head_limit, skew_transform=ckpt_skew_transform(meta))
+    slice_provenance = {'sample': 'full', 'seed': None}
+    if args.limit is not None and args.sample != 'head':
+        print(f'# note: --limit {args.limit} uses {args.sample!r} sampling '
+              f'(seed {args.sample_seed}), not the head slice', file=sys.stderr)
+        idx = ds.sample_indices(args.limit, seed=args.sample_seed,
+                                stratify_sc=(args.sample == 'stratified'))
+        ds = ds.subset(idx)
+        slice_provenance = {'sample': args.sample, 'seed': args.sample_seed}
+    elif args.limit is not None:
+        slice_provenance = {'sample': 'head', 'seed': None}
+    # the training run's decode gates; a key the meta lacks keeps
+    # TrainConfig's default
+    tcfg = eval_train_config(mcfg.max_len, meta.get('eval_gating'))
+    luts = build_luts(tokenizer, device=device)
+    encoder, decoder = params_from_jax(*load_params_npz(args.params), mcfg, device=device)
+
+    t0 = time.perf_counter()
+    out = evaluate_autoregressive(
+        encoder, decoder, ds, tcfg, luts, tokenizer=tokenizer,
+        batch_size=args.batch_size, max_batches=args.max_batches,
+        collect_errors=args.errors_out is not None)
+    wall_s = time.perf_counter() - t0
+
+    summary = {
+        'checkpoint': str(Path(args.meta).parent),
+        'epoch': meta.get('epoch'),
+        'decode_path': 'k1' if args.pallas_decode else 'plain',
+        'slice': dict(slice_provenance, limit=args.limit),
+        'eval_wall_s': round(wall_s, 2),
+        'formulas_per_s': round(out['n_evaluated'] / max(wall_s, 1e-9), 1),
+        'n_evaluated': int(out['n_evaluated']),
+        'true_ar_exact': float(out['ar_exact']),
+        'tf_exact': float(out['tf_exact']),
+        'tc_mae_kelvin': float(out['tc_mae_kelvin']),
+        'tc_r2_per_bin': out['tc_r2_per_bin'],
+        'sc_metrics': out.get('sc_metrics', {}),
+        'family_coarse_acc': float(out['family_coarse_acc']),
+        'z_norm_mean': float(out['z_norm_mean']),
+    }
+    print(json.dumps(summary, indent=2))
+    if args.errors_out:
+        Path(args.errors_out).parent.mkdir(parents=True, exist_ok=True)
+        with open(args.errors_out, 'w') as f:
+            for rec in out.get('error_records', []):
+                f.write(json.dumps(rec) + '\n')
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(summary, indent=2))
+
+
+if __name__ == '__main__':
+    main()

@@ -1,21 +1,27 @@
-"""True-autoregressive evaluation of one batch (port of training/evaluate.py).
+"""True-autoregressive evaluation (port of training/evaluate.py).
 
 ``eval_batch`` is the body of the JAX package's jitted ``eval_batch``:
-encoder, decoder memory, greedy KV-cache generation with the checkpoint's
-decode gates and early exit, then the teacher-forced forward for TF-exact.
-The loop over a dataset comes with the data slice.
+encoder, decoder memory, greedy KV-cache generation with the decode gates
+and early exit, then the teacher-forced forward for TF-exact.
+``evaluate_autoregressive`` runs it over a dataset and scores true-AR and
+TF exact match, Tc error, the SC head and the family head as the JAX
+function does.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 
+from ..data.pipeline import DatasetArrays
 from ..generation import GenerationConfig, generate_with_kv_cache
-from ..tokenizer import EOS_ID
+from ..tokenizer import EOS_ID, PAD_ID, FractionAwareTokenizer
+from .config import TrainConfig
 from .train_step import stoich_conditioning
+
+TC_BINS = ((0, 10), (10, 50), (50, 100), (100, 120), (120, 200), (200, 1000))
 
 
 def _exact_match(generated: np.ndarray, targets: np.ndarray) -> np.ndarray:
@@ -31,16 +37,24 @@ def _exact_match(generated: np.ndarray, targets: np.ndarray) -> np.ndarray:
     return ((g == targets) | ~needed).all(axis=1) & has_eos
 
 
-def eval_generation_config(max_len: int, eval_gating: Mapping) -> GenerationConfig:
-    """Greedy early-exit generation with a checkpoint's ``eval_gating``
-    (``meta.json``: stop_boost, hard_stop_threshold, site_dup_threshold,
-    use_type_masking_ar)."""
+def eval_train_config(max_len: int, eval_gating: Optional[Mapping] = None) -> TrainConfig:
+    """``TrainConfig(max_formula_len=max_len)`` with a checkpoint's
+    ``eval_gating`` (``meta.json``) copied onto it key by key, as the JAX
+    eval CLI does: a key the meta lacks keeps TrainConfig's default."""
+    tcfg = TrainConfig(max_formula_len=max_len)
+    for k, v in (eval_gating or {}).items():
+        setattr(tcfg, k, v)
+    return tcfg
+
+
+def eval_generation_config(tcfg: TrainConfig, max_len: int) -> GenerationConfig:
+    """Greedy early-exit generation with ``tcfg``'s decode gates."""
     return GenerationConfig(
         max_len=max_len, temperature=0.0,
-        stop_boost=eval_gating.get('stop_boost', 0.0),
-        hard_stop_threshold=eval_gating.get('hard_stop_threshold', 0.0),
-        site_dup_threshold=eval_gating.get('site_dup_threshold', 0.0),
-        use_type_masking=eval_gating.get('use_type_masking_ar', False),
+        stop_boost=tcfg.stop_boost,
+        hard_stop_threshold=tcfg.hard_stop_threshold,
+        site_dup_threshold=tcfg.site_dup_threshold,
+        use_type_masking=tcfg.use_type_masking_ar,
         early_exit=True)
 
 
@@ -69,4 +83,142 @@ def eval_batch(encoder, decoder, batch: Dict[str, torch.Tensor],
         'z_norm': torch.linalg.norm(enc_out['z'], dim=1),
         'family_composed_14': enc_out['family_composed_14'],
         'margin': gen['margin'],
+    }
+
+
+def _to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """A numpy batch on ``device``; int32 ids widen to int64 for indexing."""
+    return {k: torch.as_tensor(v.astype(np.int64) if v.dtype == np.int32 else v).to(device)
+            for k, v in batch.items()}
+
+
+def evaluate_autoregressive(
+    encoder, decoder,
+    ds: DatasetArrays,
+    tcfg: TrainConfig,
+    luts: Dict[str, torch.Tensor],
+    tokenizer: Optional[FractionAwareTokenizer] = None,
+    batch_size: int = 256,
+    max_batches: Optional[int] = None,
+    collect_errors: bool = False,
+    sample_indices: Optional[np.ndarray] = None,
+    speculative_tables: Optional[Dict[str, torch.Tensor]] = None,
+) -> Dict[str, object]:
+    """True-AR and TF exact match of ``ds`` (or of its rows
+    ``sample_indices``) in batches of ``batch_size``, on the modules'
+    device; the last batch is padded with row 0 so that every batch has one
+    shape.  ``sample_indices`` in the result holds the true dataset
+    indices of the evaluated rows.  The speculative decode (A.13) is not
+    ported yet."""
+    if speculative_tables is not None:
+        raise NotImplementedError('speculative decoding is not ported yet (A.13)')
+    gcfg = eval_generation_config(tcfg, decoder.cfg.max_len)
+    type_masks = luts['type_masks'] if tcfg.use_type_masking_ar else None
+    device = next(encoder.parameters()).device
+
+    if sample_indices is None:
+        sample_indices = np.arange(len(ds))
+    sample_indices = np.asarray(sample_indices, np.int64)
+    n = len(sample_indices)
+    nb = -(-n // batch_size)
+    if max_batches:
+        nb = min(nb, max_batches)
+
+    ar_exact, tf_exact = [], []
+    tc_preds, tc_trues, z_norms = [], [], []
+    fam_correct = []
+    sc_probs, sc_trues = [], []
+    pos_errors, pos_masks = [], []
+    errors: List[dict] = []
+    for b in range(nb):
+        idx = sample_indices[b * batch_size: min((b + 1) * batch_size, n)]
+        pad_n = batch_size - len(idx)
+        full_idx = np.concatenate([idx, np.zeros(pad_n, np.int64)]) if pad_n else idx
+        out = eval_batch(encoder, decoder, _to_device(ds.batch(full_idx), device), gcfg,
+                         type_masks=type_masks)
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        m = len(idx)
+
+        targets = ds.tokens[idx][:, 1:]
+        ar = _exact_match(out['generated'][:m], targets)
+        mask = targets != PAD_ID
+        tf = ((out['tf_pred'][:m] == targets) | ~mask).all(axis=1)
+        pos_errors.append((out['tf_pred'][:m] != targets) & mask)
+        pos_masks.append(mask)
+        ar_exact.append(ar)
+        tf_exact.append(tf)
+        tc_preds.append(out['tc_pred'][:m])
+        tc_trues.append(ds.tc[idx])
+        z_norms.append(out['z_norm'][:m])
+        coarse_pred = out['family_composed_14'][:m].argmax(axis=1)
+        fam_correct.append(coarse_pred == ds.family[idx])
+        sc_probs.append(1.0 / (1.0 + np.exp(-out['sc_pred'][:m])))
+        sc_trues.append(ds.is_sc[idx])
+
+        if collect_errors and tokenizer is not None:
+            for i in np.where(~ar)[0]:
+                errors.append({
+                    'index': int(idx[i]),
+                    'formula': ds.formulas[idx[i]],
+                    'generated': tokenizer.decode(out['generated'][i]),
+                    'tc_kelvin': float(ds.norm_stats.tc_to_kelvin(
+                        np.array([ds.tc[idx[i]]]))[0]),
+                    'z_norm': float(out['z_norm'][i]),
+                    'family': int(ds.family[idx[i]]),
+                })
+
+    ar_exact = np.concatenate(ar_exact)
+    tf_exact = np.concatenate(tf_exact)
+    tc_pred = np.concatenate(tc_preds)
+    tc_true = np.concatenate(tc_trues)
+    z_norm = np.concatenate(z_norms)
+
+    k_pred = ds.norm_stats.tc_to_kelvin(tc_pred)
+    k_true = ds.norm_stats.tc_to_kelvin(tc_true)
+    r2_per_bin = {}
+    for lo, hi in TC_BINS:
+        sel = (k_true >= lo) & (k_true < hi)
+        if sel.sum() >= 5:
+            ss_res = ((k_pred[sel] - k_true[sel]) ** 2).sum()
+            ss_tot = ((k_true[sel] - k_true[sel].mean()) ** 2).sum()
+            r2_per_bin[f'{lo}-{hi}K'] = float(1 - ss_res / max(ss_tot, 1e-8))
+    tc_mae = float(np.abs(k_pred - k_true).mean())
+
+    # the SC head's classifier metrics, where both classes are present
+    sc_p = np.concatenate(sc_probs)
+    sc_t = np.concatenate(sc_trues).astype(np.int32)
+    sc_metrics = {}
+    if len(np.unique(sc_t)) == 2:
+        pred = (sc_p >= 0.5).astype(np.int32)
+        tp = int(((pred == 1) & (sc_t == 1)).sum())
+        fp = int(((pred == 1) & (sc_t == 0)).sum())
+        fn = int(((pred == 0) & (sc_t == 1)).sum())
+        # rank-based AUC (Mann-Whitney)
+        order = np.argsort(sc_p, kind='stable')
+        ranks = np.empty(len(sc_p))
+        ranks[order] = np.arange(1, len(sc_p) + 1)
+        n1, n0 = int(sc_t.sum()), int((1 - sc_t).sum())
+        auc = (ranks[sc_t == 1].sum() - n1 * (n1 + 1) / 2) / (n1 * n0)
+        sc_metrics = {
+            'sc_accuracy': float((pred == sc_t).mean()),
+            'sc_precision': tp / max(tp + fp, 1),
+            'sc_recall': tp / max(tp + fn, 1),
+            'sc_auc': float(auc),
+            'sc_balance': float(sc_t.mean()),
+        }
+
+    return {
+        'ar_exact': float(ar_exact.mean()),
+        'tf_exact': float(tf_exact.mean()),
+        'tc_mae_kelvin': tc_mae,
+        'tc_r2_per_bin': r2_per_bin,
+        'sc_metrics': sc_metrics,
+        'z_norm_mean': float(z_norm.mean()),
+        'family_coarse_acc': float(np.concatenate(fam_correct).mean()),
+        'n_evaluated': int(len(ar_exact)),
+        'error_records': errors,
+        'per_sample_ar_exact': ar_exact,
+        'sample_indices': sample_indices[:len(ar_exact)],
+        'position_errors': np.concatenate(pos_errors),
+        'position_mask': np.concatenate(pos_masks),
     }

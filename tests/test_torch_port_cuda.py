@@ -1,6 +1,7 @@
 """The kernels on the card against their plain PyTorch versions (K1, the
-decode-step attention; K2, the flash-attention forward), and one train
-step on the card against the same step on the CPU.
+decode-step attention; K2, the flash-attention forward), one train step
+on the card against the same step on the CPU, and the dataset eval
+through K1 against the plain attention path.
 
 Needs an NVIDIA GPU and nvcc, and imports no JAX, so that it runs on a
 machine with the card only:
@@ -15,8 +16,12 @@ bfloat16 two bf16 ulp (2**-6 relative) plus 2e-3 absolute: the output is
 rounded once, and the probabilities are rounded to bf16 against the
 running max in the kernel and the final max in the plain version.  A
 ragged Dh is padded by the wrapper and held to the same tolerances.  The
-train step's metrics 1e-4 relative (float32, other summation orders).
+train step's metrics 1e-4 relative (float32, other summation orders).  The
+eval's token streams must be equal, except where the top two logits were
+within 1e-4 (K1 sums in another order than the plain path).
 """
+
+from pathlib import Path
 
 import pytest
 import torch
@@ -27,6 +32,7 @@ from superconductor_vae_tpu_torch.ops.fused_attention import (
     flash_attention, flash_attention_ref, fused_attention)
 
 pytestmark = pytest.mark.cuda
+CSV = Path(__file__).resolve().parents[1] / 'data/processed/jarvis_merged.csv.gz'
 
 
 @pytest.fixture
@@ -184,3 +190,59 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         metrics.append({k: x.item() for k, x in m.items()})
     for key, want in metrics[1].items():
         assert metrics[0][key] == pytest.approx(want, rel=1e-4, abs=1e-6), key
+
+
+def test_evaluate_autoregressive_through_k1_matches_plain_path(cuda):
+    """evaluate_autoregressive on the corpus's first 512 rows (run4's
+    normalisation) at tiny width with seeded weights, the stop and type
+    heads fixed so that every rollout runs all 29 steps: through K1 and
+    through the plain attention path, the same results row by row, except
+    rows whose decode met a near-tie."""
+    import dataclasses
+    import numpy as np
+    from superconductor_vae_tpu_torch.data import load_dataset
+    from superconductor_vae_tpu_torch.models import (
+        FormulaDecoder, MaterialsEncoder, init_params, tiny_test_config)
+    from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
+    from superconductor_vae_tpu_torch.training import (
+        build_luts, eval_batch, eval_generation_config, eval_train_config,
+        evaluate_autoregressive)
+    from superconductor_vae_tpu_torch.training.evaluate import _to_device
+
+    cfg = dataclasses.replace(tiny_test_config(), magpie_dim=78, max_len=30, pallas_decode=True)
+    ds = load_dataset(CSV, skew_transform='rank_gauss', limit=600)
+    gen = torch.Generator().manual_seed(0)
+    enc = init_params(MaterialsEncoder(cfg, device=cuda), gen).eval()
+    k1 = init_params(FormulaDecoder(cfg, device=cuda), gen).eval()
+    with torch.no_grad():
+        k1.stop_d2.weight.zero_()
+        k1.stop_d2.bias.fill_(-4.0)
+        k1.type_d3.bias[4] = -30.0
+    plain = FormulaDecoder(dataclasses.replace(cfg, pallas_decode=False), device=cuda).eval()
+    plain.load_state_dict(k1.state_dict())
+    tcfg, tok = eval_train_config(cfg.max_len), default_tokenizer(max_len=cfg.max_len)
+    luts = build_luts(tok, device=cuda)
+    rows = np.arange(512)
+    outs, launched = [], []
+    for dec in (k1, plain):
+        before = decode_step_attention.launches
+        outs.append(evaluate_autoregressive(enc, dec, ds, tcfg, luts, tokenizer=tok,
+                                            sample_indices=rows, collect_errors=True))
+        launched.append(decode_step_attention.launches - before)
+    got, want = outs
+    assert launched == [2 * 2 * 29, 0]        # 2 batches x 2 layers x 29 steps
+    assert got['n_evaluated'] == want['n_evaluated'] == 512
+    np.testing.assert_array_equal(got['position_errors'], want['position_errors'])
+    streams = [{e['index']: e['generated'] for e in o['error_records']} for o in outs]
+    differ = [r for r in rows if streams[0].get(r) != streams[1].get(r)
+              or got['per_sample_ar_exact'][r] != want['per_sample_ar_exact'][r]]
+    gcfg = eval_generation_config(tcfg, cfg.max_len)
+    for r in differ:
+        first = r // 256 * 256
+        batch = _to_device(ds.batch(rows[first:first + 256]), cuda)
+        a, p = (eval_batch(enc, dec, batch, gcfg, type_masks=luts['type_masks'])
+                for dec in (k1, plain))
+        i = r - first
+        step = int((a['generated'][i] != p['generated'][i]).int().argmax())
+        assert min(a['margin'][i, step].item(), p['margin'][i, step].item()) < 1e-4, r
+    assert len(differ) <= 5, differ

@@ -33,7 +33,7 @@ from superconductor_vae_tpu_torch.generation.generate import _filter_top_k_top_p
 from superconductor_vae_tpu_torch.models import config_from_meta, tiny_test_config
 from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
 from superconductor_vae_tpu_torch.training import (
-    build_luts, eval_batch, eval_generation_config)
+    build_luts, eval_batch, eval_generation_config, eval_train_config)
 from superconductor_vae_tpu_torch.training.evaluate import _exact_match
 from torch_port_common import batch, jax_config, param_trees, port_models, to_torch
 
@@ -89,9 +89,12 @@ def _port_eval(cfg, trees, data, gcfg):
     return eval_batch(enc, dec, to_torch(data), gcfg, type_masks=luts['type_masks'])
 
 
+def _gcfg(max_len):
+    return eval_generation_config(eval_train_config(max_len, GATING), max_len)
+
+
 def _gcfg_kw(max_len, early_exit=True):
-    g = eval_generation_config(max_len, GATING)
-    return dict(dataclasses.asdict(g), early_exit=early_exit)
+    return dict(dataclasses.asdict(_gcfg(max_len)), early_exit=early_exit)
 
 
 def _assert_eval_equal(got, want, tol):
@@ -109,7 +112,7 @@ def test_eval_batch_matches_jax_tiny(pallas_decode):
     trees = _rollout_trees(cfg, seed=2, stop_bias=2.2)
     data = batch(cfg, 6, seed=3)
     want = _jax_eval(cfg, trees, data, _gcfg_kw(cfg.max_len))
-    got = _port_eval(cfg, trees, data, eval_generation_config(cfg.max_len, GATING))
+    got = _port_eval(cfg, trees, data, _gcfg(cfg.max_len))
     _assert_eval_equal(got, want, 2e-5)
     assert got['margin'].shape == got['generated'].shape
     ends = _eos_steps(got['generated'])
@@ -123,7 +126,7 @@ def test_eval_batch_matches_jax_run4_width_one_layer():
     trees = _rollout_trees(cfg, seed=4, stop_bias=1.4)
     data = batch(cfg, 6, seed=5)
     want = _jax_eval(cfg, trees, data, _gcfg_kw(cfg.max_len))
-    got = _port_eval(cfg, trees, data, eval_generation_config(cfg.max_len, GATING))
+    got = _port_eval(cfg, trees, data, _gcfg(cfg.max_len))
     _assert_eval_equal(got, want, 1e-4)
     ends = _eos_steps(got['generated'])
     assert min(ends) > 0 and len(set(ends)) > 1, ends

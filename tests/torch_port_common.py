@@ -5,11 +5,19 @@ Parameters are numpy trees of the flax models' shapes (taken with
 ``jax.eval_shape``, which compiles nothing), filled from
 ``np.random.default_rng(seed)``; the same trees drive the JAX model and,
 through ``params_from_jax``, the port.  Inputs come from numpy too.
+
+Run as a script, it exports an Orbax snapshot's params to the npz file the
+port's eval CLI reads (the card's machine has no Orbax reader):
+
+    PYTHONPATH=. python tests/torch_port_common.py results/run4/ckpt_snapshot \
+        build/run4_params.npz
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -83,3 +91,21 @@ def to_torch(batch_np):
 def port_models(cfg: ModelConfig, trees):
     """The port's encoder and decoder on the CPU, loaded from ``trees``."""
     return params_from_jax(trees[0], trees[1], cfg, device='cpu')
+
+
+def export_params_npz(restored, out_path):
+    """A restored snapshot's (``load_checkpoint``) encoder and decoder
+    params as float32 arrays (exact for its bf16 values), keyed by
+    ``enc_params/`` or ``dec_params/`` and the leaf's ``/``-joined path, for
+    the port's ``load_params_npz``."""
+    flat = {}
+    for root in ('enc_params', 'dec_params'):
+        for path, leaf in jax.tree_util.tree_flatten_with_path(restored[root])[0]:
+            flat['/'.join([root] + [k.key for k in path])] = np.asarray(leaf, np.float32)
+    Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez(out_path, **flat)
+
+
+if __name__ == '__main__':
+    from superconductor_vae_tpu.checkpoint import load_checkpoint
+    export_params_npz(load_checkpoint(sys.argv[1])[0], sys.argv[2])
