@@ -77,8 +77,33 @@
    of 8 rows with dropout off on the card and on the CPU from the same
    weights, the CPU step fed the card's rollout: metrics, AdamW moments
    and updates agree.  One SCST step and one fused rollout under the
-   profiler; the rollout and the TF re-score with its backward timed alone.
-10. Prints the kernels' JSON line, then as its last line
+   profiler; the rollout and the TF re-score with its backward timed alone;
+   each method's peak memory with the TF re-score rematerialised
+   (torch.utils.checkpoint, as the step runs it) and, for one step, without.
+10. K1 bf16 at the bench paths' shapes (B=512, the gen probe; B=1024, the
+   SCST rollout of 512; T=30, Dh=72) against its plain version at every
+   position, caches equal, and timed beside the plain version, SDPA and the
+   bytes bound, averaged over positions 0..28.
+11. Bench phase: the port's bench (superconductor_vae_tpu_torch/bench.py)
+   at ModelConfig() (magpie_dim 145, run4's other widths) in bf16 compute
+   with float32 parameters, batch 512, K1 in the rollouts, on its
+   synthetic data: its train probe (5 steps here, 20 standalone), RL probe
+   (SCST, rl_w 1; 1 warm + 1 timed chunk of 8 steps here, 1 + 3
+   standalone) and gen probe (greedy with bench.py's gates and early exit,
+   1 + 5 calls) with random heads, as the bench runs them; then RL and gen
+   again with the stop and type heads fixed (every rollout 29 steps), and
+   gen casting the weights at every call instead of once a rollout; one
+   bf16 train step and one SCST step under the profiler.  Checks (a) the
+   pre-boundary logits and the KV caches bf16, parameters and AdamW
+   moments float32, losses finite, and K1's bf16 instance launched 12
+   times a decode step of every probe rollout and nothing else; (c) a
+   29-step greedy rollout of 512 rows through K1 against the plain decode
+   path: the two paths' logits over K1's stream within half of TIE_BF16,
+   the streams equal except where the top two logits were within TIE_BF16;
+   (d) one bf16 train step of 8 rows at ModelConfig() on the card against
+   the CPU: the loss terms and the AdamW first moments within half of the
+   CPU's own bf16-vs-float32 difference; the updates printed beside them.
+12. Prints the kernels' JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -87,6 +112,7 @@ line.  It refuses to run without CUDA.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -289,6 +315,41 @@ def k1_bytes_ops(b, h, dh, position, itemsize):
     return nbytes, ops
 
 
+def k1_inputs(torch, gen, b, h, t, dh, dtype):
+    """q, k_new, v_new [B, H, Dh] and the caches [B, H, T, Dh], random."""
+    dev = gen.device
+    rows = [torch.randn(b, h, dh, generator=gen, device=dev).to(dtype) for _ in range(3)]
+    caches = [torch.randn(b, h, t, dh, generator=gen, device=dev).to(dtype) for _ in range(2)]
+    return rows + caches
+
+
+def k1_held(torch, gen, b, h, t, dh, dtype, position):
+    """K1 against its plain version: max abs error; fails on a disagreement
+    beyond K1_TOL or on caches that differ at all."""
+    from superconductor_vae_tpu_torch.ops.decode_attention import (
+        decode_step_attention, decode_step_attention_ref)
+    q, kn, vn, kc, vc = k1_inputs(torch, gen, b, h, t, dh, dtype)
+    kc_ref, vc_ref = kc.clone(), vc.clone()
+    out = decode_step_attention(q, kn, vn, kc, vc, position)
+    ref = decode_step_attention_ref(q, kn, vn, kc_ref, vc_ref, position)
+    torch.cuda.synchronize()
+    name = str(dtype).split('.')[1]
+    err = (out.float() - ref.float()).abs().max().item()
+    where = f'{name}, B={b} H={h} T={t} Dh={dh} pos={position}'
+    check(out.shape == q.shape and torch.allclose(out.float(), ref.float(), **K1_TOL[name]),
+          f'K1 output disagrees with the plain version ({where}): max_abs_err {err:.3e}')
+    check(torch.equal(kc, kc_ref) and torch.equal(vc, vc_ref),
+          f'K1 cache rows disagree ({where})')
+    return err
+
+
+def k1_sets(torch, gen, b, h, t, dh, dtype):
+    """Enough input sets that a rotation over them finds each cold."""
+    per_set = 2 * b * h * t * dh * torch.empty((), dtype=dtype).element_size()
+    return [k1_inputs(torch, gen, b, h, t, dh, dtype)
+            for _ in range(max(2, -(-int(L2_COLD_BYTES) // per_set)))]
+
+
 def kernel_phase(torch, dev):
     import torch.nn.functional as F
     from superconductor_vae_tpu_torch.ops.decode_attention import (
@@ -297,28 +358,8 @@ def kernel_phase(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     dtypes = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
-    def inputs(b, h, t, dh, dtype):
-        rows = [torch.randn(b, h, dh, generator=gen, device=dev).to(dtype) for _ in range(3)]
-        caches = [torch.randn(b, h, t, dh, generator=gen, device=dev).to(dtype)
-                  for _ in range(2)]
-        return rows + caches
-
     def held(b, h, t, dh, dtype, position):
-        """Kernel against the plain version: max abs error; fails on a
-        disagreement or on caches that differ at all."""
-        q, kn, vn, kc, vc = inputs(b, h, t, dh, dtype)
-        kc_ref, vc_ref = kc.clone(), vc.clone()
-        out = decode_step_attention(q, kn, vn, kc, vc, position)
-        ref = decode_step_attention_ref(q, kn, vn, kc_ref, vc_ref, position)
-        torch.cuda.synchronize()
-        name = str(dtype).split('.')[1]
-        err = (out.float() - ref.float()).abs().max().item()
-        where = f'{name}, B={b} H={h} T={t} Dh={dh} pos={position}'
-        check(out.shape == q.shape and torch.allclose(out.float(), ref.float(), **K1_TOL[name]),
-              f'K1 output disagrees with the plain version ({where}): max_abs_err {err:.3e}')
-        check(torch.equal(kc, kc_ref) and torch.equal(vc, vc_ref),
-              f'K1 cache rows disagree ({where})')
-        return err
+        return k1_held(torch, gen, b, h, t, dh, dtype, position)
 
     max_err = dict.fromkeys(dtypes, 0.0)
     for name, dtype in dtypes.items():
@@ -341,9 +382,7 @@ def kernel_phase(torch, dev):
         max_err['float32'] = max(max_err['float32'], worst)
 
     def sets_for(b, h, t, dh, dtype):
-        """Enough input sets that a rotation over them finds each cold."""
-        per_set = 2 * b * h * t * dh * torch.empty((), dtype=dtype).element_size()
-        return [inputs(b, h, t, dh, dtype) for _ in range(max(2, -(-int(L2_COLD_BYTES) // per_set)))]
+        return k1_sets(torch, gen, b, h, t, dh, dtype)
 
     h, dh = K1_MAIN[1], K1_MAIN[3]
     rows = {}
@@ -714,9 +753,9 @@ def steps_run(generated, eos_id):
     return int(is_eos.int().argmax(dim=1).max()) + 1
 
 
-def compare_streams(got, want, eos_id, what):
+def compare_streams(got, want, eos_id, what, tie=TIE):
     """Token streams up to each row's EOS must agree; a row may diverge
-    only where the two largest logits were within TIE in either run."""
+    only where the two largest logits were within ``tie`` in either run."""
     from superconductor_vae_tpu_torch.generation import sequence_mask
     mask = sequence_mask(want['generated']).bool()
     diff = (got['generated'] != want['generated']) & mask
@@ -725,7 +764,7 @@ def compare_streams(got, want, eos_id, what):
         s = int(diff[r].int().argmax())
         gap = min(float(got['margin'][r, s]), float(want['margin'][r, s]))
         print(f'{what}: row {r} diverges at step {s}, top-two gap {gap:.3e}')
-        check(gap < TIE, f'{what}: row {r} diverges at step {s} with top-two gap {gap:.3e}')
+        check(gap < tie, f'{what}: row {r} diverges at step {s} with top-two gap {gap:.3e}')
         ties += 1
     return ties
 
@@ -765,7 +804,8 @@ def trace_batch(torch, fn, what, own=None):
                  (sum(x.self_device_time_total for x in mine), sum(x.count for x in mine)))
         print(f'trace:   {own}: {us / 1e3:.2f} ms over {n} launches, {us / max(n, 1):.2f} us '
               f'a launch ({100 * us / busy_us:.1f}% of busy): {e.key[:90] if e else "all"}')
-    gemm = [e for e in kernels if 'gemm' in e.key.lower()]
+    # cuBLAS's GEMMs: *gemm* kernels, and on Hopper its nvjet kernels
+    gemm = [e for e in kernels if 'gemm' in e.key.lower() or e.key.startswith('nvjet')]
     gemm_us = sum(e.self_device_time_total for e in gemm)
     print(f'trace:   GEMM kernels {gemm_us / 1e3:.1f} ms ({100 * gemm_us / busy_us:.1f}% of '
           f'busy) over {sum(e.count for e in gemm)} launches; the rest '
@@ -1219,6 +1259,16 @@ def rl_phase(torch, dev, batches):
                   f'{vals[i]["reinforce_loss"]:.4f}, mean_reward {vals[i]["mean_reward"]:.4f}, '
                   f'reward_var {vals[i]["reward_var"]:.4f}, grad_norm {vals[i]["grad_norm"]:.3f}')
         results[method] = (rate, launches[0])
+        # the re-score's remat (torch.utils.checkpoint): one step without it
+        with _patched(rl, 'checkpoint', lambda fn, *args, use_reentrant: fn(*args)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step(state, rows[0], SEED, dyn)
+            torch.cuda.synchronize()
+            peak_off = torch.cuda.max_memory_allocated()
+        print(f'rl: {method}: peak memory with the TF re-score rematerialised '
+              f'{peak / 2 ** 30:.2f} GiB (the timed steps), without {peak_off / 2 ** 30:.2f} GiB '
+              '(one step)')
         if method == 'scst':
             trace_batch(torch, lambda: step(state, rows[1], SEED, dyn),
                         f'one SCST step of {RL_BATCH}', own='decode_attention_kernel')
@@ -1330,6 +1380,362 @@ def rollout_checks(torch, dev, cfg, tcfg, state, batch, luts, dyn):
     state.decoder.train()
 
 
+# -- bench phase --------------------------------------------------------------
+
+# the port's bench (superconductor_vae_tpu_torch/bench.py) at ModelConfig(),
+# bf16 compute, batch 512, through its probe functions with fewer reps than
+# the standalone bench (train 20 steps, RL 1 warm + 3 timed chunks of 8,
+# gen 1 warm + 5 timed calls)
+BENCH_TRAIN_STEPS = 5
+BENCH_RL_CHUNKS = (1, 1)                  # (warm, timed) chunks of 8 SCST steps
+BENCH_GEN_CALLS = (1, 5)                  # (warm, timed) generate calls
+K1_BF16_B = (512, 1024)                   # the gen probe's rows; the SCST rollout of 512
+# a bf16 near-tie: K1 (float32 inside, one rounding) and the plain path
+# (bf16 scores and probabilities) part where the top two logits are within
+# this gap; it must be at least twice the largest logit difference of the
+# two paths over a forced stream, which the phase measures and checks
+TIE_BF16 = 2 ** -4
+# the 17 terms of multitask_loss's total, as its metrics name them
+BF16_LOSS_TERMS = ('formula_loss', 'reinforce_loss', 'tc_loss', 'magpie_loss', 'kl_loss',
+                   'stoich_loss', 'count_loss', 'tc_class_loss', 'constraint_zoo_loss',
+                   'z_norm_penalty', 'stop_loss', 'type_loss', 'site_dup_loss', 'hp_loss',
+                   'sc_loss', 'family_loss', 'physics_z_loss')
+
+
+def k1_bf16_phase(torch, dev):
+    """(b) K1 bf16 against its plain version at the bench paths' shapes
+    (B=512, 1024; T=30, Dh=72) at every position, caches equal; then its
+    device time beside the plain version's and SDPA's, averaged over
+    positions 0..28, with the mean bytes bound.  Returns the kernels-line
+    numbers at B=1024 and the largest error."""
+    import torch.nn.functional as F
+    from superconductor_vae_tpu_torch.ops.decode_attention import (
+        decode_step_attention, decode_step_attention_ref)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    h, t, dh = 8, 30, 72
+    worst = 0.0
+    for b in K1_BF16_B:
+        err = max(k1_held(torch, gen, b, h, t, dh, torch.bfloat16, p) for p in range(t))
+        print(f'bench: K1 check bfloat16 B={b} T={t} Dh={dh} pos 0..{t - 1}: max_abs_err '
+              f'{err:.3e} (tol {K1_TOL["bfloat16"]}) caches_equal=True')
+        worst = max(worst, err)
+    rows = {}
+    for b in K1_BF16_B:
+        sets = k1_sets(torch, gen, b, h, t, dh, torch.bfloat16)
+        kern, plain, lib, bound, by = [], [], [], [], set()
+        for p in range(t - 1):
+            keep = (torch.arange(t, device=dev) <= p)[None, :]
+            kern.append(device_ms(torch, lambda *a: decode_step_attention(*a, p), sets)[0])
+            plain.append(device_ms(torch, lambda *a: decode_step_attention_ref(*a, p), sets)[0])
+            lib.append(device_ms(torch, lambda q, kn, vn, kc, vc: F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, attn_mask=keep), sets)[0])
+            nbytes, ops = k1_bytes_ops(b, h, dh, p, 2)
+            bound.append(max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S) * 1e3)
+            by.add('bytes' if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOP_PER_S else 'operations')
+        mean = {k: sum(v) / len(v) for k, v in
+                (('ms', kern), ('plain_ms', plain), ('library_ms', lib), ('bound_ms', bound))}
+        print(f'bench: K1 time bfloat16 B={b} T={t} pos 0..{t - 2} mean: kernel '
+              f'{mean["ms"] * 1e3:.2f} us, plain {mean["plain_ms"] * 1e3:.2f} us, sdpa '
+              f'{mean["library_ms"] * 1e3:.2f} us, bytes bound {mean["bound_ms"] * 1e3:.2f} us '
+              f'(kernel / bound {mean["ms"] / mean["bound_ms"]:.2f}); kernel by position '
+              + ' '.join(f'{x * 1e3:.1f}' for x in kern))
+        check(len(by) == 1, f'bench: K1 bf16 bound by {by} over the positions')
+        rows[b] = dict(mean, bound_by=by.pop())
+        del sets
+    torch.cuda.empty_cache()
+    return rows[K1_BF16_B[-1]], worst
+
+
+def bench_phase(torch, dev):
+    """The port's bench at ModelConfig() in bf16 (batch 512, K1 in the
+    rollouts): its train, RL and gen probes with random heads, as the bench
+    runs them, then the RL and gen probes again with the stop and type heads
+    fixed (every rollout 29 steps), and gen casting the weights at every
+    call instead of once a rollout; a bf16 train step and an SCST step under
+    the profiler.  Checks (a) the bf16 path is real: float32 parameters and
+    AdamW moments, bf16 logits and caches, finite losses, K1's bf16 instance
+    launched 12 times a decode step of every probe rollout and nothing
+    else; (c) a 29-step greedy rollout of 512 rows through K1 against the
+    plain path; (d) one bf16 train step of 8 rows on the card against the
+    CPU.  Returns K1 bf16's launches on the probes."""
+    import math
+    from superconductor_vae_tpu_torch import bench
+    from superconductor_vae_tpu_torch.generation import generate as generate_module
+    from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+    from superconductor_vae_tpu_torch.ops.fused_attention import flash_attention
+    from superconductor_vae_tpu_torch.training import default_dyn, make_train_step
+
+    def zero():
+        decode_step_attention.launches = 0
+        decode_step_attention.launches_by_dtype = dict.fromkeys(
+            decode_step_attention.launches_by_dtype, 0)
+        flash_attention.launches = 0
+
+    def read():
+        return (decode_step_attention.launches_by_dtype[torch.bfloat16],
+                decode_step_attention.launches, flash_attention.launches)
+
+    t0 = time.perf_counter()
+    s = bench.build(device=dev)
+    cfg = s.mcfg
+    print(f'bench: ModelConfig() {dataclasses.asdict(cfg)}')
+    print(f'bench: compute dtype {s.dtype}, batch {len(s.batch["tokens"])}, decode route '
+          f'{bench.decode_route(s)}, built in {time.perf_counter() - t0:.1f} s; the standalone '
+          f'bench runs train 20 steps, RL 1 + 3 chunks of {bench.RL_CHUNK}, gen 1 + 5 '
+          f'calls; this phase train {BENCH_TRAIN_STEPS}, RL {BENCH_RL_CHUNKS[0]} + '
+          f'{BENCH_RL_CHUNKS[1]}, gen {BENCH_GEN_CALLS[0]} + {BENCH_GEN_CALLS[1]}')
+    # (a) float32 parameters, bf16 compute
+    with torch.no_grad():
+        z = s.state.encoder(s.batch['element_indices'][:4], s.batch['element_fractions'][:4],
+                            s.batch['element_mask'][:4], s.batch['magpie'][:4],
+                            s.batch['tc'][:4])
+        logits = s.state.decoder(z['z'], s.batch['tokens'][:4], torch.zeros(
+            4, cfg.stoich_input_dim, device=dev), torch.zeros(4, cfg.heads_input_dim,
+                                                             device=dev))['logits']
+    caches = s.state.decoder.init_cache(2)
+    check(logits.dtype == torch.bfloat16 and caches[0].dtype == torch.bfloat16,
+          f'bench: pre-boundary logits {logits.dtype}, caches {caches[0].dtype}: not bf16')
+    del z, logits, caches
+
+    def paths(heads):
+        """The probes' runs on the main path: counts at 0 just before each,
+        read just after; K1's bf16 instance 12 x the decode steps of every
+        rollout (warm-ups included), nothing else launched."""
+        out = {}
+        for name, probe in (('rl', lambda: bench.rl_probe(
+                s, chunks=BENCH_RL_CHUNKS[1], warm_chunks=BENCH_RL_CHUNKS[0])),
+                            ('gen', lambda: bench.gen_probe(
+                s, calls=BENCH_GEN_CALLS[1], warm_calls=BENCH_GEN_CALLS[0]))):
+            zero()
+            r = probe()
+            torch.cuda.synchronize()
+            bf16, total, k2 = read()
+            steps = r['warm_decode_steps'] + r['decode_steps']
+            check(bf16 > 0, f'bench {name} ({heads}): K1 bf16 was not launched')
+            check((bf16, total, k2) == (cfg.num_layers * sum(steps),) * 2 + (0,),
+                  f'bench {name} ({heads}): K1 bf16 / all K1 / K2 launches {(bf16, total, k2)} '
+                  f'!= layers x decode steps {cfg.num_layers * sum(steps)}, the same, 0')
+            out[name] = (r, bf16)
+        return out
+
+    zero()
+    train = bench.train_probe(s, steps=BENCH_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    check(read() == (0, 0, 0), f'bench train: K1/K2 launched {read()}')
+    runs = {'random heads': paths('random heads')}
+    fix_rollout_heads(torch, s.state.decoder)
+    runs['heads fixed'] = paths('heads fixed')
+    # (a) parameters and moments float32 after the steps; losses finite
+    for params, opt in s.state.groups():
+        check(all(p.dtype == torch.float32 and opt.state[p]['exp_avg'].dtype == torch.float32
+                  and opt.state[p]['exp_avg_sq'].dtype == torch.float32 for p in params),
+              'bench: a parameter or AdamW moment is not float32')
+    for name, m in [('train', train['metrics'])] + [
+            (f'rl ({h})', r['rl'][0]['metrics']) for h, r in runs.items()]:
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        check(not bad, f'bench {name}: metrics not finite: {bad}')
+    n = len(s.batch['tokens'])
+    print(f'bench: train {BENCH_TRAIN_STEPS} steps of {n} in {train["seconds"]:.3f} s = '
+          f'{train["samples_per_s"]:.1f} train samples/s; peak {train["peak_gib"]:.2f} GiB; '
+          f'total {train["metrics"]["total"]:.4f}, formula {train["metrics"]["formula_loss"]:.4f}')
+    launches = 0
+    for heads, r in runs.items():
+        rl_r, rl_k1 = r['rl']
+        gen_r, gen_k1 = r['gen']
+        launches += rl_k1 + gen_k1
+        print(f'bench: rl ({heads}): {rl_r["steps"]} SCST steps of {rl_r["rl_batch_size"]} in '
+              f'{rl_r["seconds"]:.3f} s = {rl_r["samples_per_s"]:.1f} RL samples/s; peak '
+              f'{rl_r["peak_gib"]:.2f} GiB; decode steps of each rollout '
+              f'{rl_r["warm_decode_steps"]} (warm) {rl_r["decode_steps"]}; K1 bf16 launches '
+              f'{rl_k1}; reinforce {rl_r["metrics"]["reinforce_loss"]:.4f}, mean_reward '
+              f'{rl_r["metrics"]["mean_reward"]:.4f}')
+        print(f'bench: gen ({heads}): {gen_r["calls"]} calls of {n} in {gen_r["seconds"]:.3f} s '
+              f'= {gen_r["formulas_per_s"]:.1f} formulas/s; decode steps {gen_r["decode_steps"]}; '
+              f'K1 bf16 launches {gen_k1}')
+    # the cost of casting the weights at every decode step: in turns (once,
+    # every call, every call, once), since the host's speed drifts
+    rates = {'once': [], 'every call': []}
+    for how in ('once', 'every call', 'every call', 'once'):
+        with (_patched(generate_module, 'cast_weights_once', contextlib.nullcontext)
+              if how == 'every call' else contextlib.nullcontext()):
+            r = bench.gen_probe(s, calls=BENCH_GEN_CALLS[1], warm_calls=BENCH_GEN_CALLS[0])
+        check(r['decode_steps'] == [cfg.max_len - 1] * BENCH_GEN_CALLS[1],
+              f'bench: gen ran {r["decode_steps"]} steps')
+        rates[how].append(r['formulas_per_s'])
+    print('bench: gen (heads fixed), weights cast once a rollout against at every call, in '
+          'turns: ' + '; '.join(f'{how} ' + ', '.join(f'{x:.1f}' for x in v) + ' formulas/s'
+                                for how, v in rates.items()))
+
+    trace_batch(torch, lambda: make_train_step(s.tcfg, s.luts)(
+        s.state, s.batch, 7, default_dyn(s.tcfg)), f'one bf16 train step of {n}')
+    rl_tcfg = dataclasses.replace(s.tcfg, rl=dataclasses.replace(s.tcfg.rl, max_len=cfg.max_len))
+    trace_batch(torch, lambda: make_train_step(rl_tcfg, s.luts, rl_enabled=True)(
+        s.state, s.batch, 8, dict(default_dyn(rl_tcfg), rl_w=1.0)),
+        f'one bf16 SCST step of {n} (heads fixed)', own='decode_attention_kernel')
+    bf16_rollout_check(torch, dev, s)
+    del s
+    torch.cuda.empty_cache()
+    bf16_step_check(torch, dev)
+    return launches, runs
+
+
+@contextlib.contextmanager
+def _patched(module, name, value):
+    original = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def bf16_rollout_check(torch, dev, s):
+    """(c) A greedy rollout of the batch's 512 rows in bf16 through K1, the
+    stop and type heads fixed (29 steps), against the plain decode path
+    with the same weights: first the largest difference of the two paths'
+    token logits and top two type logits over K1's stream, forced into
+    both (it must be at
+    most half of TIE_BF16), then the streams, equal except where the top two
+    gated logits, or the top two type logits (which pick the type mask),
+    were within TIE_BF16 in either run."""
+    from superconductor_vae_tpu_torch import bench
+    from superconductor_vae_tpu_torch.generation import generate_with_kv_cache
+    from superconductor_vae_tpu_torch.models import FormulaDecoder
+    from superconductor_vae_tpu_torch.models.layers import cast_weights_once
+    from superconductor_vae_tpu_torch.tokenizer import BOS_ID, EOS_ID
+    from superconductor_vae_tpu_torch.training import stoich_conditioning
+    cfg, bt = s.mcfg, s.batch
+    enc, k1 = s.state.encoder.eval(), s.state.decoder.eval()
+    plain = FormulaDecoder(dataclasses.replace(cfg, pallas_decode=False), device=dev,
+                           dtype=s.dtype).eval()
+    plain.load_state_dict(k1.state_dict())
+    gcfg = bench.gen_config(cfg)
+    with torch.no_grad():
+        out = enc(bt['element_indices'], bt['element_fractions'], bt['element_mask'],
+                  bt['magpie'], bt['tc'])
+        cond = (out['z'], stoich_conditioning(bt), enc.heads_pred_for_decoder(out))
+        runs = [generate_with_kv_cache(d, *cond, None, gcfg, type_masks=s.luts['type_masks'])
+                for d in (k1, plain)]
+        n_steps = steps_run(runs[0]['tokens'], EOS_ID)
+        check(n_steps == cfg.max_len - 1, f'bench (c): the rollout ran {n_steps} steps')
+        worst = dict.fromkeys(('logits', 'type_logits'), 0.0)
+        type_gap = [torch.zeros_like(r['margin']) for r in runs]
+        with cast_weights_once(k1), cast_weights_once(plain):
+            state = []
+            for d in (k1, plain):
+                mkv = d.memory_kv(d.build_memory(*cond))
+                state.append((mkv, *d.init_cache(len(bt['tokens']))))
+            tok = torch.full_like(runs[0]['tokens'][:, 0], BOS_ID)
+            for pos in range(n_steps):
+                heads = [d.decode_step(tok, pos, kc, vc, mkv)[0]
+                         for d, (mkv, kc, vc) in zip((k1, plain), state)]
+                worst['logits'] = max(worst['logits'], (heads[0]['logits'].float()
+                                                        - heads[1]['logits'].float()).abs().max().item())
+                # the type logits that pick the mask: the top two of each run
+                top2 = [h['type_logits'].float().topk(2, dim=-1).values for h in heads]
+                worst['type_logits'] = max(worst['type_logits'],
+                                           (top2[0] - top2[1]).abs().max().item())
+                for gap, t2 in zip(type_gap, top2):
+                    gap[:, pos] = t2[:, 0] - t2[:, 1]
+                tok = runs[0]['tokens'][:, pos]
+    print(f'bench (c): K1 against the plain path over K1\'s stream ({n_steps} steps, '
+          f'{len(tok)} rows, bf16): largest difference of the token logits '
+          f'{worst["logits"]:.4f}, of the top two type logits {worst["type_logits"]:.4f}; '
+          f'near-tie gap '
+          f'TIE_BF16 {TIE_BF16}')
+    check(2 * max(worst.values()) <= TIE_BF16, f'bench (c): the two paths\' logits differ by '
+          f'{worst}, more than half of TIE_BF16 {TIE_BF16}')
+    # a step is a near-tie if its gated logits' or its type logits' top two were close
+    got, want = ({'generated': r['tokens'], 'margin': torch.minimum(r['margin'], gap)}
+                 for r, gap in zip(runs, type_gap))
+    excused = compare_streams(got, want, EOS_ID, 'bench (c) K1 vs plain, bf16', tie=TIE_BF16)
+    print(f'bench (c): greedy bf16 streams of {len(tok)} rows through K1 equal the plain '
+          f'path\'s; rows excused as near-ties {excused}')
+    s.state.encoder.train()
+    s.state.decoder.train()
+
+
+def bf16_step_pairs(torch, dev, cfg):
+    """One bf16 train step of 8 rows at ``cfg``, dropout off, physics-Z
+    weight 1 (so that every group has a gradient), from the same seed on
+    the card and on the CPU, and in float32 on the CPU.  Returns
+    [(what, card bf16 vs CPU bf16, CPU bf16 vs CPU float32)] for the 17
+    loss terms with the total (each relative to its float32 value, the
+    largest), each group's AdamW first moment (relative L2 norm) and its
+    parameter update (L1 norm with each element weighted by its float32
+    gradient's magnitude, relative: the update's first-order effect on
+    the loss; a first AdamW update is lr * sign(g) plus the decay, so two
+    runs part only where g is near 0)."""
+    from superconductor_vae_tpu_torch.data import synthetic_dataset
+    from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
+    from superconductor_vae_tpu_torch.training import (
+        TrainConfig, build_luts, create_train_state, default_dyn, make_train_step)
+    from superconductor_vae_tpu_torch.training.evaluate import _to_device
+    import numpy as np
+    data = synthetic_dataset(n=N_CPU_ROWS, max_len=cfg.max_len, magpie_dim=cfg.magpie_dim,
+                             seed=SEED + 3).batch(np.arange(N_CPU_ROWS))
+    terms = BF16_LOSS_TERMS + ('total',)
+    runs = {}
+    for name, where, dtype in (('card bf16', dev, 'bfloat16'),
+                               ('cpu bf16', torch.device('cpu'), 'bfloat16'),
+                               ('cpu f32', torch.device('cpu'), 'float32')):
+        t0 = time.perf_counter()
+        tcfg = TrainConfig(batch_size=N_CPU_ROWS, max_formula_len=cfg.max_len,
+                           use_physics_z=True, compute_dtype=dtype,
+                           hungarian_enabled=False, use_round_trip=False)
+        st = create_train_state(cfg, tcfg, seed=SEED + 3, device=where)
+        before = _group_tensors(st)
+        st, m = make_train_step(tcfg, build_luts(default_tokenizer(max_len=cfg.max_len),
+                                                 device=where))(
+            st, _to_device(data, where), SEED, dict(default_dyn(tcfg), physz_w=1.0))
+        after = _group_tensors(st)
+        runs[name] = (np.array([m[k].item() for k in terms]),
+                      {g: (torch.cat([v[1].flatten().cpu() for v in after[g].values()]),
+                           torch.cat([(v[0] - before[g][k][0]).flatten().cpu()
+                                      for k, v in after[g].items()])) for g in after})
+        del st
+        print(f'bench (d): {name} step of {N_CPU_ROWS} rows in '
+              f'{time.perf_counter() - t0:.1f} s: total {runs[name][0][-1]:.6f}')
+    (mc, tc_), (mb, tb), (mf, tf) = runs['card bf16'], runs['cpu bf16'], runs['cpu f32']
+    scale = np.maximum(np.abs(mf), 1e-30)
+    pairs = [('17 loss terms and total (largest, relative to float32)',
+              (np.abs(mc - mb) / scale).max(), (np.abs(mb - mf) / scale).max())]
+    for g in tb:
+        ref = tf[g][0].norm().item()
+        pairs.append((f'{g} AdamW mu (relative L2)', (tc_[g][0] - tb[g][0]).norm().item() / ref,
+                      (tb[g][0] - tf[g][0]).norm().item() / ref))
+        weight = tf[g][0].abs()
+        ref = (weight * tf[g][1].abs()).sum().item()
+        pairs.append((f'{g} update (|g|-weighted L1, relative)',
+                      (weight * (tc_[g][1] - tb[g][1]).abs()).sum().item() / ref,
+                      (weight * (tb[g][1] - tf[g][1]).abs()).sum().item() / ref))
+    return pairs
+
+
+def bf16_step_check(torch, dev):
+    """(d) One bf16 train step of 8 rows at ModelConfig(), card against CPU
+    (``bf16_step_pairs``).  The 17 loss terms with the total and each
+    group's AdamW first moment (the clipped gradient, which sets the
+    update) must be within half of the CPU's own bf16-vs-float32
+    difference, which a card step that ran in float32 would be a whole
+    difference away from.  The updates are printed beside them, not held:
+    a first AdamW update is lr * sign(g) plus the decay, so it differs only
+    where a gradient changes sign, and two bf16 implementations (cuBLAS
+    and oneDNN here) part chaotically through the 12 layers wherever one
+    rounding differed, which flips the signs of near-zero gradients about
+    as often as float32 against bf16 does."""
+    from superconductor_vae_tpu_torch.models import ModelConfig
+    cfg = dataclasses.replace(ModelConfig(), dropout=0.0)
+    for what, err, gap in bf16_step_pairs(torch, dev, cfg):
+        held = 'update' not in what
+        print(f'bench (d): {what}: card bf16 vs CPU bf16 {err:.3e}; CPU bf16 vs CPU float32 '
+              f'{gap:.3e}; ' + (f'tolerance {gap / 2:.3e} (half); ratio {err / gap:.3f}' if held
+                                else f'ratio {err / gap:.3f} (printed, not held)'))
+        if held:
+            check(err <= gap / 2, f'bench (d): card and CPU bf16 disagree on {what}: '
+                  f'{err:.3e} > {gap / 2:.3e}')
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1364,13 +1770,17 @@ def main() -> int:
     k2_rows, k2_err, k2_launches = k2_phase(torch, dev)
     train_phase(torch, dev, batches)
     rl_results = rl_phase(torch, dev, batches)
+    k1_bf16, k1_bf16_err = k1_bf16_phase(torch, dev)
+    bench_launches, _ = bench_phase(torch, dev)
 
     k1_paths = {'eval': launches, 'eval corpus': corpus_launches,
                 'rl scst': rl_results['scst'][1], 'rl rloo': rl_results['rloo'][1]}
     launches = sum(k1_paths.values())
     print(f'total: {time.perf_counter() - t_start:.1f} s')
-    print(f'kernels: ["K1 decode_step_attention", "K2 flash_attention", "K2 flash_attention '
-          f'bf16"] launches: {{"K1 decode_step_attention": {launches} {k1_paths}, '
+    print(f'kernels: ["K1 decode_step_attention", "K1 decode_step_attention bf16", '
+          f'"K2 flash_attention", "K2 flash_attention bf16"] launches: '
+          f'{{"K1 decode_step_attention": {launches} {k1_paths}, '
+          f'"K1 decode_step_attention bf16": {bench_launches} (bench probes: rl and gen), '
           f'"K2 flash_attention": {k2_launches[torch.float32]}, "K2 flash_attention bf16": '
           f'{k2_launches[torch.bfloat16]}}}')
     print(json.dumps({'kernels': [{
@@ -1379,6 +1789,12 @@ def main() -> int:
         'replaces': 'superconductor_vae_tpu/ops/pallas_decode.py:80',
         'launches': launches, 'max_abs_err': k1_err,
         **k1,
+    }, {
+        'name': 'K1 decode_step_attention bf16', 'route': 'cuda',
+        'source': 'superconductor_vae_tpu_torch/csrc/decode_attention.cu',
+        'replaces': 'superconductor_vae_tpu/ops/pallas_decode.py:80',
+        'launches': bench_launches, 'max_abs_err': k1_bf16_err,
+        **k1_bf16,
     }, {
         'name': 'K2 flash_attention', 'route': 'cuda',
         'source': 'superconductor_vae_tpu_torch/csrc/flash_attention.cu',

@@ -83,9 +83,10 @@ def params_from_jax(enc_params: Mapping, dec_params: Mapping, cfg: ModelConfig,
                     pz_params: Optional[Mapping] = None):
     """The JAX package's encoder and decoder params, as numpy trees, loaded
     into a new ``MaterialsEncoder`` and ``FormulaDecoder`` on ``device``
-    (in eval mode).  Given the train state's ``pz_params`` too, returns
-    (encoder, decoder, projection) with the projection as an
-    ``nn.Linear(M, 62)``."""
+    (in eval mode) that compute in ``dtype`` (flax's ``dtype``); the
+    parameters are float32 whatever it is.  Given the train state's
+    ``pz_params`` too, returns (encoder, decoder, projection) with the
+    projection as a float32 ``nn.Linear(M, 62)``."""
     encoder = MaterialsEncoder(cfg, device=device, dtype=dtype)
     decoder = FormulaDecoder(cfg, device=device, dtype=dtype)
     encoder.load_state_dict(state_dict_from_flax(enc_params), strict=True)
@@ -93,6 +94,6 @@ def params_from_jax(enc_params: Mapping, dec_params: Mapping, cfg: ModelConfig,
     if pz_params is None:
         return encoder.eval(), decoder.eval()
     m, out = np.shape(pz_params['kernel'])
-    proj = nn.Linear(m, out, device=device, dtype=dtype)
+    proj = nn.Linear(m, out, device=device, dtype=torch.float32)
     proj.load_state_dict(state_dict_from_flax(pz_params), strict=True)
     return encoder.eval(), decoder.eval(), proj

@@ -8,6 +8,11 @@ runs as whole-batch tensor ops.  The step loop is a Python loop over the
 decoder's cached ``decode_step``; with ``early_exit`` it stops once every
 row has emitted EOS, which reads one flag from the device per step.
 Sampling draws from an explicit ``torch.Generator``.
+
+The decoder runs in its compute dtype, with its weights cast once for the
+whole rollout (``cast_weights_once``); the gated logits are float32, and
+the stop, type and site-dup heads are read in the compute dtype, as in the
+JAX loop.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..models.layers import cast_weights_once
 from ..tokenizer import BOS_ID, EOS_ID, ELEMENT_TOKEN_START, INTEGER_TOKEN_START
 
 
@@ -68,7 +74,8 @@ def _apply_gates(logits, heads, pos: int, finished, seen_elements,
                             * (pos - gcfg.length_boost_start)
                             / max(gcfg.max_len - gcfg.length_boost_start, 1))
         logits = logits.clone()
-        logits[:, EOS_ID] += gcfg.stop_boost * stop_prob + length_boost
+        # the boost in the head's dtype, added to the ramp in the logits'
+        logits[:, EOS_ID] += (gcfg.stop_boost * stop_prob).to(logits.dtype) + length_boost
 
         if gcfg.hard_stop_threshold > 0:
             force = (stop_prob > gcfg.hard_stop_threshold) & ~finished
@@ -117,7 +124,8 @@ def generate_with_kv_cache(
 
     ``generator`` draws the samples of a sampling rollout (it may be None
     for a greedy one); ``greedy_mask`` takes the argmax for the rows it
-    marks.  Forward only: the caches are updated in place."""
+    marks.  Forward only: the caches are updated in place, and the
+    decoder's weights are cast to its compute dtype once for the rollout."""
     if not gcfg.greedy and generator is None:
         raise ValueError('a sampling rollout needs a torch.Generator')
     b = z.shape[0]
@@ -125,62 +133,63 @@ def generate_with_kv_cache(
     vocab = decoder.cfg.vocab_size
     steps = gcfg.max_len - 1
 
-    if memory is None:
-        memory = decoder.build_memory(z, stoich, heads_vec)
-    mem_kvs = decoder.memory_kv(memory)
-    kc, vc = decoder.init_cache(b)
+    with cast_weights_once(decoder):
+        if memory is None:
+            memory = decoder.build_memory(z, stoich, heads_vec)
+        mem_kvs = decoder.memory_kv(memory)
+        kc, vc = decoder.init_cache(b)
 
-    tok = torch.full((b,), BOS_ID, dtype=torch.long, device=dev)
-    finished = torch.zeros(b, dtype=torch.bool, device=dev)
-    seen = torch.zeros(b, vocab, dtype=torch.bool, device=dev)
-    rows = torch.arange(b, device=dev)
-    tokens = torch.zeros(b, steps, dtype=torch.long, device=dev)
-    log_probs = torch.zeros(b, steps, device=dev)
-    entropies = torch.zeros(b, steps, device=dev)
-    margins = torch.zeros(b, steps, device=dev)
+        tok = torch.full((b,), BOS_ID, dtype=torch.long, device=dev)
+        finished = torch.zeros(b, dtype=torch.bool, device=dev)
+        seen = torch.zeros(b, vocab, dtype=torch.bool, device=dev)
+        rows = torch.arange(b, device=dev)
+        tokens = torch.zeros(b, steps, dtype=torch.long, device=dev)
+        log_probs = torch.zeros(b, steps, device=dev)
+        entropies = torch.zeros(b, steps, device=dev)
+        margins = torch.zeros(b, steps, device=dev)
 
-    for pos in range(steps):
-        if gcfg.early_exit and bool(finished.all()):
-            break
-        heads, kc, vc = decoder.decode_step(tok, pos, kc, vc, mem_kvs)
-        logits = _apply_gates(heads['logits'].float(), heads, pos, finished,
-                              seen, type_masks, gcfg)
+        for pos in range(steps):
+            if gcfg.early_exit and bool(finished.all()):
+                break
+            heads, kc, vc = decoder.decode_step(tok, pos, kc, vc, mem_kvs)
+            logits = _apply_gates(heads['logits'].float(), heads, pos, finished,
+                                  seen, type_masks, gcfg)
 
-        # NaN/Inf guard: degenerate rows fall back to uniform
-        degenerate = ~torch.isfinite(logits).any(dim=-1) | torch.isnan(logits).any(dim=-1)
-        safe_logits = logits.masked_fill(degenerate[:, None], 0.0)
+            # NaN/Inf guard: degenerate rows fall back to uniform
+            degenerate = ~torch.isfinite(logits).any(dim=-1) | torch.isnan(logits).any(dim=-1)
+            safe_logits = logits.masked_fill(degenerate[:, None], 0.0)
 
-        # entropy BEFORE temperature / filtering
-        probs_ent = torch.softmax(safe_logits, dim=-1).clamp_min(1e-8)
-        entropy = -(probs_ent * probs_ent.log()).sum(dim=-1)
-        entropy = entropy.masked_fill(degenerate, math.log(vocab))
+            # entropy BEFORE temperature / filtering
+            probs_ent = torch.softmax(safe_logits, dim=-1).clamp_min(1e-8)
+            entropy = -(probs_ent * probs_ent.log()).sum(dim=-1)
+            entropy = entropy.masked_fill(degenerate, math.log(vocab))
 
-        if gcfg.greedy:
-            top2 = safe_logits.topk(2, dim=-1).values
-            margins[:, pos] = top2[:, 0] - top2[:, 1]
-            next_tok = safe_logits.argmax(dim=-1)
-            log_prob = torch.zeros(b, device=dev)
-        else:
-            temp = gcfg.temperature if temperature is None else temperature
-            t_logits = _filter_top_k_top_p(safe_logits / temp, gcfg)
-            t_logits = t_logits.masked_fill(degenerate[:, None], 0.0)
-            probs = torch.softmax(t_logits, dim=-1)
-            next_tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
-            log_prob = probs.clamp_min(1e-8).log()[rows, next_tok]
-            if greedy_mask is not None:
-                next_tok = torch.where(greedy_mask, safe_logits.argmax(dim=-1), next_tok)
-                log_prob = log_prob.masked_fill(greedy_mask, 0.0)
+            if gcfg.greedy:
+                top2 = safe_logits.topk(2, dim=-1).values
+                margins[:, pos] = top2[:, 0] - top2[:, 1]
+                next_tok = safe_logits.argmax(dim=-1)
+                log_prob = torch.zeros(b, device=dev)
+            else:
+                temp = gcfg.temperature if temperature is None else temperature
+                t_logits = _filter_top_k_top_p(safe_logits / temp, gcfg)
+                t_logits = t_logits.masked_fill(degenerate[:, None], 0.0)
+                probs = torch.softmax(t_logits, dim=-1)
+                next_tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+                log_prob = probs.clamp_min(1e-8).log()[rows, next_tok]
+                if greedy_mask is not None:
+                    next_tok = torch.where(greedy_mask, safe_logits.argmax(dim=-1), next_tok)
+                    log_prob = log_prob.masked_fill(greedy_mask, 0.0)
 
-        # track seen element tokens
-        is_elem = ((next_tok >= ELEMENT_TOKEN_START)
-                   & (next_tok < INTEGER_TOKEN_START) & ~finished)
-        seen[rows, next_tok] |= is_elem
+            # track seen element tokens
+            is_elem = ((next_tok >= ELEMENT_TOKEN_START)
+                       & (next_tok < INTEGER_TOKEN_START) & ~finished)
+            seen[rows, next_tok] |= is_elem
 
-        finished = finished | (next_tok == EOS_ID)
-        tokens[:, pos] = next_tok
-        log_probs[:, pos] = log_prob
-        entropies[:, pos] = entropy
-        tok = next_tok
+            finished = finished | (next_tok == EOS_ID)
+            tokens[:, pos] = next_tok
+            log_probs[:, pos] = log_prob
+            entropies[:, pos] = entropy
+            tok = next_tok
 
     out = {'tokens': tokens, 'log_probs': log_probs, 'entropy': entropies,
            'mask': sequence_mask(tokens)}

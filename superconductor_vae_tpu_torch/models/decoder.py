@@ -9,9 +9,11 @@ predictions (4); output projection, stop head, site-duplication head and
 The KV cache is pre-allocated (``init_cache``) and updated in place, one
 row per step.  Its layout is ``[L, B, T, H, Dh]`` for the plain path and
 ``[L, B, H, T, Dh]`` when ``cfg.pallas_decode`` routes the step's
-self-attention through the decode-step kernel (ops/decode_attention.py).
-Cross-attention K/V over the static memory are projected once per
-generation (``memory_kv``).
+self-attention through the decode-step kernel (ops/decode_attention.py),
+in the compute dtype.  Cross-attention K/V over the static memory are
+projected once per generation (``memory_kv``).  ``dtype`` is the compute
+dtype, as flax's: the parameters are float32 whatever it is
+(models/layers.py).
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from ..ops.attention import causal_mask, mha_attention
 from ..ops.decode_attention import decode_step_attention
 from ..utils.device import resolve_device
 from .config import ModelConfig
-from .encoder import LN_EPS, _gelu
+from .layers import Dense, Embed, LayerNorm
+from .layers import gelu as _gelu
 
 
 def sinusoidal_positions(max_len: int, d_model: int) -> np.ndarray:
@@ -67,18 +70,18 @@ def positional_table(cfg: ModelConfig) -> np.ndarray:
 class DecoderLayer(nn.Module):
     """Pre-norm decoder layer: causal self-attn, cross-attn to memory, GELU FFN."""
 
-    def __init__(self, cfg: ModelConfig, device=None, dtype=None):
+    def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         d = cfg.d_model
         for name in ('norm1', 'norm2', 'norm3'):
-            self.add_module(name, nn.LayerNorm(d, eps=LN_EPS, **kw))
+            self.add_module(name, LayerNorm(d, **kw))
         for name in ('self_q', 'self_k', 'self_v', 'self_o',
                      'cross_q', 'cross_k', 'cross_v', 'cross_o'):
-            self.add_module(name, nn.Linear(d, d, **kw))
-        self.ff1 = nn.Linear(d, cfg.dim_feedforward, **kw)
-        self.ff2 = nn.Linear(cfg.dim_feedforward, d, **kw)
+            self.add_module(name, Dense(d, d, **kw))
+        self.ff1 = Dense(d, cfg.dim_feedforward, **kw)
+        self.ff2 = Dense(cfg.dim_feedforward, d, **kw)
 
     def _split(self, x):
         b, t, _ = x.shape
@@ -146,44 +149,41 @@ class MemoryBuilder(nn.Module):
     """z + stoich + head predictions -> [B, 24, d_model] memory tokens,
     laid out [latent(16) | stoich(4) | heads(4)]."""
 
-    def __init__(self, cfg: ModelConfig, device=None, dtype=None):
+    def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.cfg = cfg
+        self.cfg, self.dtype = cfg, dtype
         d = cfg.d_model
         ln = 0                       # flax numbers the unnamed LayerNorms
         if cfg.memory_bottleneck_dim > 0:
-            self.latent_bottleneck = nn.Linear(cfg.latent_dim,
-                                               cfg.memory_bottleneck_dim, **kw)
-            self.add_module(f'LayerNorm_{ln}', nn.LayerNorm(
-                cfg.memory_bottleneck_dim, eps=LN_EPS, **kw))
+            self.latent_bottleneck = Dense(cfg.latent_dim, cfg.memory_bottleneck_dim, **kw)
+            self.add_module(f'LayerNorm_{ln}', LayerNorm(
+                cfg.memory_bottleneck_dim, **kw))
             self._latent_ln = f'LayerNorm_{ln}'
             ln += 1
-            self.latent_out = nn.Linear(cfg.memory_bottleneck_dim,
-                                        d * cfg.n_memory_tokens, **kw)
+            self.latent_out = Dense(cfg.memory_bottleneck_dim, d * cfg.n_memory_tokens, **kw)
         else:
-            self.latent_mid = nn.Linear(cfg.latent_dim,
-                                        d * cfg.n_memory_tokens // 2, **kw)
-            self.latent_out = nn.Linear(d * cfg.n_memory_tokens // 2,
-                                        d * cfg.n_memory_tokens, **kw)
+            self.latent_mid = Dense(cfg.latent_dim, d * cfg.n_memory_tokens // 2, **kw)
+            self.latent_out = Dense(d * cfg.n_memory_tokens // 2, d * cfg.n_memory_tokens,
+                                    **kw)
         if cfg.n_stoich_tokens > 0:
-            self.stoich_mid = nn.Linear(cfg.stoich_input_dim, d, **kw)
-            self.add_module(f'LayerNorm_{ln}', nn.LayerNorm(d, eps=LN_EPS, **kw))
+            self.stoich_mid = Dense(cfg.stoich_input_dim, d, **kw)
+            self.add_module(f'LayerNorm_{ln}', LayerNorm(d, **kw))
             self._stoich_ln = f'LayerNorm_{ln}'
             ln += 1
-            self.stoich_out = nn.Linear(d, d * cfg.n_stoich_tokens, **kw)
+            self.stoich_out = Dense(d, d * cfg.n_stoich_tokens, **kw)
         if cfg.n_heads_tokens > 0:
-            self.heads_mid1 = nn.Linear(cfg.heads_input_dim, d // 2, **kw)
-            self.add_module(f'LayerNorm_{ln}', nn.LayerNorm(d // 2, eps=LN_EPS, **kw))
+            self.heads_mid1 = Dense(cfg.heads_input_dim, d // 2, **kw)
+            self.add_module(f'LayerNorm_{ln}', LayerNorm(d // 2, **kw))
             self._heads_ln = f'LayerNorm_{ln}'
-            self.heads_mid2 = nn.Linear(d // 2, d, **kw)
-            self.heads_out = nn.Linear(d, d * cfg.n_heads_tokens, **kw)
+            self.heads_mid2 = Dense(d // 2, d, **kw)
+            self.heads_out = Dense(d, d * cfg.n_heads_tokens, **kw)
 
     def forward(self, z, stoich, heads_vec):
         cfg = self.cfg
         d = cfg.d_model
         b = z.shape[0]
-        dt = self.latent_out.weight.dtype
+        dt = self.dtype
         z = z.to(dt)
         if cfg.memory_bottleneck_dim > 0:
             h = _gelu(getattr(self, self._latent_ln)(self.latent_bottleneck(z)))
@@ -203,32 +203,32 @@ class MemoryBuilder(nn.Module):
 class FormulaDecoder(nn.Module):
     """Formula decoder with the teacher-forced forward and the cached
     decode step.  Built on ``device`` (default CUDA; raises if it is
-    absent)."""
+    absent), computing in ``dtype`` with float32 parameters."""
 
     def __init__(self, cfg: ModelConfig, device='cuda', dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
         kw = dict(device=device, dtype=dtype)
-        self.cfg = cfg
+        self.cfg, self.dtype = cfg, dtype
         d = cfg.d_model
-        self.token_embedding = nn.Embedding(cfg.vocab_size, d, **kw)
+        self.token_embedding = Embed(cfg.vocab_size, d, **kw)
         # +8 slack rows, as in the JAX table (chunked decode reads past the end)
         self.register_buffer('pos_table', torch.tensor(
-            positional_table(cfg), **kw), persistent=False)
+            positional_table(cfg), device=device), persistent=False)
         self.memory_builder = MemoryBuilder(cfg, **kw)
         for i in range(cfg.num_layers):
             self.add_module(f'layer_{i}', DecoderLayer(cfg, **kw))
-        self.out_ln = nn.LayerNorm(d, eps=LN_EPS, **kw)
-        self.out_d1 = nn.Linear(d, d, **kw)
-        self.out_d2 = nn.Linear(d, cfg.vocab_size, **kw)
-        self.stop_d1 = nn.Linear(d, d // 4, **kw)
-        self.stop_d2 = nn.Linear(d // 4, 1, **kw)
-        self.dup_d1 = nn.Linear(d, d // 4, **kw)
-        self.dup_d2 = nn.Linear(d // 4, 1, **kw)
-        self.type_ln = nn.LayerNorm(d, eps=LN_EPS, **kw)
-        self.type_d1 = nn.Linear(d, d, **kw)
-        self.type_d2 = nn.Linear(d, d // 4, **kw)
-        self.type_d3 = nn.Linear(d // 4, 5, **kw)
+        self.out_ln = LayerNorm(d, **kw)
+        self.out_d1 = Dense(d, d, **kw)
+        self.out_d2 = Dense(d, cfg.vocab_size, **kw)
+        self.stop_d1 = Dense(d, d // 4, **kw)
+        self.stop_d2 = Dense(d // 4, 1, **kw)
+        self.dup_d1 = Dense(d, d // 4, **kw)
+        self.dup_d2 = Dense(d // 4, 1, **kw)
+        self.type_ln = LayerNorm(d, **kw)
+        self.type_d1 = Dense(d, d, **kw)
+        self.type_d2 = Dense(d, d // 4, **kw)
+        self.type_d3 = Dense(d // 4, 5, **kw)
 
     @property
     def layers(self) -> List[DecoderLayer]:
@@ -273,7 +273,7 @@ class FormulaDecoder(nn.Module):
         """Parallel causal forward over explicit (pre-positional) input
         embeddings."""
         t = input_embeds.shape[1]
-        x = self._drop(input_embeds + self.pos_table[None, :t])
+        x = self._drop(input_embeds + self.pos_table[None, :t].to(self.dtype))
         mask = causal_mask(t, device=x.device)
         for layer in self.layers:
             x = layer(x, memory, mask)
@@ -292,7 +292,8 @@ class FormulaDecoder(nn.Module):
         Returns (head outputs for this position, k_caches, v_caches).
         Runs without dropout in either mode, as a rollout inside a train
         step must."""
-        x = (self.token_embedding(token) + self.pos_table[position])[:, None, :]
+        x = (self.token_embedding(token)
+             + self.pos_table[position].to(self.dtype))[:, None, :]
         for i, layer in enumerate(self.layers):
             x, _, _ = layer.step(x, k_caches[i], v_caches[i], memory_kvs[i],
                                  position, self.cfg.max_len)
@@ -300,12 +301,12 @@ class FormulaDecoder(nn.Module):
         return {k: v[:, 0] for k, v in heads.items()}, k_caches, v_caches
 
     def init_cache(self, batch_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Zeroed K and V caches: [L, B, H, T, Dh] under ``cfg.pallas_decode``
-        (the kernel's layout), else [L, B, T, H, Dh]."""
+        """Zeroed K and V caches in the compute dtype: [L, B, H, T, Dh] under
+        ``cfg.pallas_decode`` (the kernel's layout), else [L, B, T, H, Dh]."""
         cfg = self.cfg
         if cfg.pallas_decode:
             shape = (cfg.num_layers, batch_size, cfg.nhead, cfg.max_len, cfg.head_dim)
         else:
             shape = (cfg.num_layers, batch_size, cfg.max_len, cfg.nhead, cfg.head_dim)
-        kw = dict(device=self.pos_table.device, dtype=self.out_d2.weight.dtype)
+        kw = dict(device=self.pos_table.device, dtype=self.dtype)
         return torch.zeros(shape, **kw), torch.zeros(shape, **kw)

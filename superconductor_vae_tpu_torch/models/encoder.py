@@ -9,7 +9,9 @@ bucket, cross-head SC classifier and the 3-level family head.
 Submodules carry the names of the flax modules they port (``Dense_0``,
 ``LayerNorm_0``, ``tc_encoder_pre``, ...), so a flax parameter path is
 also the module path here (checkpoint/from_jax.py).  Exact (erf) GELU and
-LayerNorm eps 1e-5, as in the JAX package.
+LayerNorm eps 1e-5, as in the JAX package.  ``dtype`` is the compute
+dtype, as flax's: the parameters are float32 whatever it is
+(models/layers.py).
 """
 
 from __future__ import annotations
@@ -22,12 +24,8 @@ from torch import nn
 
 from ..utils.device import resolve_device
 from .config import ModelConfig
-
-LN_EPS = 1e-5
-
-
-def _gelu(x):
-    return F.gelu(x)            # exact erf GELU
+from .layers import PARAM_DTYPE, Dense, Embed, LayerNorm
+from .layers import gelu as _gelu
 
 
 class MLP(nn.Module):
@@ -35,7 +33,7 @@ class MLP(nn.Module):
 
     def __init__(self, in_dim: int, features: Sequence[int],
                  use_layernorm: bool = True, dropout: float = 0.0,
-                 final_activation: bool = True, device=None, dtype=None):
+                 final_activation: bool = True, device=None, dtype=torch.float32):
         super().__init__()
         self.n = len(features)
         self.use_layernorm = use_layernorm
@@ -44,9 +42,9 @@ class MLP(nn.Module):
         kw = dict(device=device, dtype=dtype)
         d = in_dim
         for i, f in enumerate(features):
-            self.add_module(f'Dense_{i}', nn.Linear(d, f, **kw))
+            self.add_module(f'Dense_{i}', Dense(d, f, **kw))
             if use_layernorm and (i < self.n - 1 or final_activation):
-                self.add_module(f'LayerNorm_{i}', nn.LayerNorm(f, eps=LN_EPS, **kw))
+                self.add_module(f'LayerNorm_{i}', LayerNorm(f, **kw))
             d = f
 
     def forward(self, x):
@@ -66,26 +64,28 @@ class ElementAttention(nn.Module):
     the pooled representation and the head-averaged attention weights."""
 
     def __init__(self, hidden_dim: int, n_heads: int, dropout: float = 0.1,
-                 device=None, dtype=None):
+                 device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.hidden_dim, self.n_heads, self.dropout = hidden_dim, n_heads, dropout
-        self.query = nn.Parameter(torch.empty(n_heads, hidden_dim // n_heads, **kw))
-        self.key_proj = nn.Linear(hidden_dim, hidden_dim, **kw)
-        self.value_proj = nn.Linear(hidden_dim, hidden_dim, **kw)
-        self.output_proj = nn.Linear(hidden_dim, hidden_dim, **kw)
-        self.LayerNorm_0 = nn.LayerNorm(hidden_dim, eps=LN_EPS, **kw)
+        self.dtype = dtype
+        self.query = nn.Parameter(torch.empty(n_heads, hidden_dim // n_heads,
+                                              device=device, dtype=PARAM_DTYPE))
+        self.key_proj = Dense(hidden_dim, hidden_dim, **kw)
+        self.value_proj = Dense(hidden_dim, hidden_dim, **kw)
+        self.output_proj = Dense(hidden_dim, hidden_dim, **kw)
+        self.LayerNorm_0 = LayerNorm(hidden_dim, **kw)
 
     def forward(self, embeds, mask):
         b, n, _ = embeds.shape
         hd = self.hidden_dim // self.n_heads
         keys = self.key_proj(embeds).reshape(b, n, self.n_heads, hd)
         values = self.value_proj(embeds).reshape(b, n, self.n_heads, hd)
-        scores = torch.einsum('hd,bnhd->bhn', self.query, keys)
-        scores = scores / torch.tensor(hd, dtype=scores.dtype,
+        scores = torch.einsum('hd,bnhd->bhn', self.query.to(self.dtype), keys)
+        scores = scores / torch.tensor(hd, dtype=self.dtype,
                                        device=scores.device).sqrt()
         scores = scores.masked_fill(~mask[:, None, :],
-                                    torch.finfo(scores.dtype).min)
+                                    torch.finfo(self.dtype).min)
         attn = torch.softmax(scores, dim=-1)
         attn = F.dropout(attn, self.dropout, self.training)
         attended = torch.einsum('bhn,bnhd->bhd', attn, values)
@@ -96,10 +96,11 @@ class ElementAttention(nn.Module):
 class ElementEncoder(nn.Module):
     """Learned element embeddings, fraction-weighted, attention-pooled."""
 
-    def __init__(self, cfg: ModelConfig, device=None, dtype=None):
+    def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.element_embed = nn.Embedding(cfg.n_elements + 1,
+        self.dtype = dtype
+        self.element_embed = Embed(cfg.n_elements + 1,
                                           cfg.element_embed_dim, **kw)
         self.element_attention = ElementAttention(
             cfg.element_embed_dim, cfg.n_attention_heads, cfg.dropout, **kw)
@@ -109,7 +110,7 @@ class ElementEncoder(nn.Module):
     def forward(self, element_indices, element_fractions, element_mask):
         embeds = self.element_embed(element_indices)
         # stoichiometry weighting BEFORE attention: Cu3 counts 3x Y1
-        embeds = embeds * element_fractions[..., None].to(embeds.dtype)
+        embeds = embeds * element_fractions[..., None].to(self.dtype)
         attended, attn_w = self.element_attention(embeds, element_mask.bool())
         return self.output_projection(attended), attn_w, embeds
 
@@ -123,18 +124,18 @@ class HierarchicalFamilyHead(nn.Module):
               ('iron_sub', (64,), 2))
 
     def __init__(self, backbone_dim: int, dropout: float = 0.1,
-                 device=None, dtype=None):
+                 device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.dropout = dropout
+        self.dropout, self.dtype = dropout, dtype
         for name, widths, out in self._HEADS:
             d = backbone_dim + 1
             for i, w in enumerate(widths):
-                self.add_module(f'{name}_d{i}', nn.Linear(d, w, **kw))
+                self.add_module(f'{name}_d{i}', Dense(d, w, **kw))
                 if i == 0:
-                    self.add_module(f'{name}_ln', nn.LayerNorm(w, eps=LN_EPS, **kw))
+                    self.add_module(f'{name}_ln', LayerNorm(w, **kw))
                 d = w
-            self.add_module(f'{name}_out', nn.Linear(d, out, **kw))
+            self.add_module(f'{name}_out', Dense(d, out, **kw))
 
     def _head(self, x, name, n_layers):
         y = x
@@ -148,7 +149,7 @@ class HierarchicalFamilyHead(nn.Module):
         return getattr(self, f'{name}_out')(y)
 
     def forward(self, h, sc_logit_detached) -> Dict[str, torch.Tensor]:
-        sc_prob = torch.sigmoid(sc_logit_detached)[:, None].to(h.dtype)
+        sc_prob = torch.sigmoid(sc_logit_detached)[:, None].to(self.dtype)
         x = torch.cat([h, sc_prob], dim=-1)
         coarse, cuprate, iron = (self._head(x, name, len(widths))
                                  for name, widths, _ in self._HEADS)
@@ -173,46 +174,47 @@ class HierarchicalFamilyHead(nn.Module):
 class MaterialsEncoder(nn.Module):
     """Three-branch encoder -> deterministic z -> multi-head decode.
 
-    Built on ``device`` (default CUDA; raises if it is absent).  Parameters
-    are left to ``models.init.init_params`` or ``checkpoint.from_jax``."""
+    Built on ``device`` (default CUDA; raises if it is absent), computing
+    in ``dtype`` with float32 parameters.  Parameters are left to
+    ``models.init.init_params`` or ``checkpoint.from_jax``."""
 
     def __init__(self, cfg: ModelConfig, device='cuda', dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
         kw = dict(device=device, dtype=dtype)
-        self.cfg = cfg
+        self.cfg, self.dtype = cfg, dtype
         f, lat, p = cfg.fusion_dim, cfg.latent_dim, cfg.dropout
         self.element_encoder = ElementEncoder(cfg, **kw)
         self.magpie_encoder = MLP(cfg.magpie_dim, [f * 2, f], dropout=p, **kw)
         # Dense -> GELU -> Dense, then LN -> GELU (reference tc_encoder)
         self.tc_encoder_pre = MLP(1, [f // 2, f], use_layernorm=False,
                                   final_activation=False, **kw)
-        self.tc_encoder_ln = nn.LayerNorm(f, eps=LN_EPS, **kw)
+        self.tc_encoder_ln = LayerNorm(f, **kw)
         self.fusion = MLP(3 * f, [f * 3], dropout=p, **kw)
         self.latent_mlp = MLP(3 * f, list(cfg.encoder_hidden), **kw)
-        self.fc_mean = nn.Linear(cfg.encoder_hidden[-1], lat, **kw)
+        self.fc_mean = Dense(cfg.encoder_hidden[-1], lat, **kw)
 
         self.decoder_backbone = MLP(lat, list(cfg.decoder_hidden), dropout=p, **kw)
         bb = cfg.decoder_hidden[-1]
-        self.tc_proj = nn.Linear(bb, 256, **kw)
+        self.tc_proj = Dense(bb, 256, **kw)
         self.tc_res_block = MLP(256, [256, 256], dropout=p,
                                 final_activation=False, **kw)
-        self.tc_out_ln = nn.LayerNorm(256, eps=LN_EPS, **kw)
-        self.tc_out_1 = nn.Linear(256, 128, **kw)
-        self.tc_out_2 = nn.Linear(128, 1, **kw)
+        self.tc_out_ln = LayerNorm(256, **kw)
+        self.tc_out_1 = Dense(256, 128, **kw)
+        self.tc_out_2 = Dense(128, 1, **kw)
         self.magpie_head = MLP(bb, [bb, cfg.magpie_dim], use_layernorm=False,
                                final_activation=False, **kw)
-        self.attended_head = nn.Linear(bb, f, **kw)
-        self.attended_head_ln = nn.LayerNorm(f, eps=LN_EPS, **kw)
+        self.attended_head = Dense(bb, f, **kw)
+        self.attended_head_ln = LayerNorm(f, **kw)
         self.competence_head = MLP(lat, [lat // 4, 1], use_layernorm=False,
                                    final_activation=False, **kw)
         # Dense -> LN -> GELU -> Dropout -> Dense -> GELU -> Dense
-        self.fraction_d0 = nn.Linear(lat, 256, **kw)
-        self.fraction_ln = nn.LayerNorm(256, eps=LN_EPS, **kw)
-        self.fraction_d1 = nn.Linear(256, 128, **kw)
-        self.fraction_d2 = nn.Linear(128, cfg.max_elements + 1, **kw)
-        self.hp_d0 = nn.Linear(lat, 256, **kw)          # ReLU head
-        self.hp_d1 = nn.Linear(256, 1, **kw)
+        self.fraction_d0 = Dense(lat, 256, **kw)
+        self.fraction_ln = LayerNorm(256, **kw)
+        self.fraction_d1 = Dense(256, 128, **kw)
+        self.fraction_d2 = Dense(128, cfg.max_elements + 1, **kw)
+        self.hp_d0 = Dense(lat, 256, **kw)          # ReLU head
+        self.hp_d1 = Dense(256, 1, **kw)
         self.tc_class_head = MLP(bb, [256, 5], use_layernorm=False,
                                  final_activation=False, dropout=p, **kw)
         if cfg.use_numden_head:
@@ -220,10 +222,10 @@ class MaterialsEncoder(nn.Module):
                                    dropout=p, **kw)
         # Dense -> GELU -> LN -> Dropout -> Dense -> GELU -> Dense
         sc_in = (lat + 1 + cfg.magpie_dim + 1 + cfg.max_elements + 1 + 1 + 5)
-        self.sc_d0 = nn.Linear(sc_in, 512, **kw)
-        self.sc_ln = nn.LayerNorm(512, eps=LN_EPS, **kw)
-        self.sc_d1 = nn.Linear(512, 128, **kw)
-        self.sc_d2 = nn.Linear(128, 1, **kw)
+        self.sc_d0 = Dense(sc_in, 512, **kw)
+        self.sc_ln = LayerNorm(512, **kw)
+        self.sc_d1 = Dense(512, 128, **kw)
+        self.sc_d2 = Dense(128, 1, **kw)
         self.family_head = HierarchicalFamilyHead(bb, p, **kw)
 
     def _drop(self, x):
@@ -231,11 +233,10 @@ class MaterialsEncoder(nn.Module):
 
     def encode(self, element_indices, element_fractions, element_mask,
                magpie, tc) -> Dict[str, torch.Tensor]:
-        dt = self.fc_mean.weight.dtype
-        tc = tc.reshape(tc.shape[0], 1).to(dt)
+        tc = tc.reshape(tc.shape[0], 1).to(self.dtype)
         elem_repr, attn_w, elem_embeds = self.element_encoder(
             element_indices, element_fractions, element_mask)
-        magpie_repr = self.magpie_encoder(magpie.to(dt))
+        magpie_repr = self.magpie_encoder(magpie.to(self.dtype))
         tc_repr = _gelu(self.tc_encoder_ln(self.tc_encoder_pre(tc)))
         fused = self.fusion(torch.cat([elem_repr, magpie_repr, tc_repr], dim=-1))
         z = self.fc_mean(self.latent_mlp(fused))
@@ -247,7 +248,7 @@ class MaterialsEncoder(nn.Module):
         return self.fraction_d2(_gelu(self.fraction_d1(h)))
 
     def decode(self, z) -> Dict[str, torch.Tensor]:
-        h = self.decoder_backbone(z.to(self.fc_mean.weight.dtype))
+        h = self.decoder_backbone(z.to(self.dtype))
         tc_h = self.tc_proj(h)
         tc_h = tc_h + self.tc_res_block(tc_h)
         tc_pred = self.tc_out_2(

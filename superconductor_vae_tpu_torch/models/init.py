@@ -4,6 +4,8 @@ Linear weights and the element-attention query: Xavier uniform; biases:
 zeros; embeddings: normal(0, 0.02); LayerNorm: ones and zeros.  Values
 are drawn on the CPU from an explicit ``torch.Generator`` and copied to
 the parameters' device, so a seed gives the same weights on any device.
+The parameters are float32 whatever the model's compute dtype
+(models/layers.py).
 """
 
 from __future__ import annotations

@@ -117,7 +117,8 @@ def decode_step_attention(q: torch.Tensor, k_new: torch.Tensor,
 
     CPU tensors take ``decode_step_attention_ref``.  CUDA tensors launch
     the kernel on the current stream (counted in
-    ``decode_step_attention.launches``) or raise: unsupported inputs
+    ``decode_step_attention.launches``, and by dtype in
+    ``decode_step_attention.launches_by_dtype``) or raise: unsupported inputs
     (dtype, shape, layout, Dh > 256) and a failed launch are errors."""
     if q.device.type == 'cpu':
         if any(t.device != q.device for t in (k_new, v_new, k_cache, v_cache)):
@@ -140,7 +141,9 @@ def decode_step_attention(q: torch.Tensor, k_new: torch.Tensor,
         raise RuntimeError(f'decode_step_attention: launch failed with '
                            f'cudaError_t {err}')
     decode_step_attention.launches += 1
+    decode_step_attention.launches_by_dtype[q.dtype] += 1
     return out
 
 
 decode_step_attention.launches = 0
+decode_step_attention.launches_by_dtype = dict.fromkeys(_SUFFIX, 0)

@@ -10,6 +10,13 @@
   rollout (``greedy_mask``) over a memory built once.
 - RLOO tiles the batch K times into one [B*K] rollout with leave-one-out
   baselines.
+- The re-score runs under ``torch.utils.checkpoint`` (JAX:
+  ``jax.checkpoint`` around it in ``scst_loss`` and ``rloo_loss``): the
+  step keeps its inputs, not its activations, and recomputes it in the
+  backward pass.  It runs without dropout, so the recompute is the same
+  pass.
+- The rollouts and the re-score run in the decoder's compute dtype; the
+  log-probs are float32.
 - Rewards are the V14 reward (ops/reward.py), the constraint rewards
   (ops/constraints.py) and, at ``novelty_weight > 0``, the batch novelty
   bonus.
@@ -25,6 +32,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..generation.generate import GenerationConfig, generate_with_kv_cache
 from ..tokenizer import BOS_ID, ELEMENT_TOKEN_START, EOS_ID, INTEGER_TOKEN_START
@@ -183,6 +191,16 @@ def rescore_log_probs(
     return probs.log().gather(-1, tokens[..., None])[..., 0]
 
 
+def _rescore_remat(decoder, z, stoich, heads_vec, tokens, cfg: RLConfig, luts,
+                   temperature=None) -> torch.Tensor:
+    """``rescore_log_probs`` under ``torch.utils.checkpoint``: its
+    activations are recomputed in the backward pass instead of held."""
+    return checkpoint(
+        lambda zz, st, hv: rescore_log_probs(decoder, zz, st, hv, tokens, cfg, luts,
+                                             temperature=temperature),
+        z, stoich, heads_vec, use_reentrant=False)
+
+
 def _seq_entropy(ent, mask, position_entropy_w):
     """Masked mean entropy of each sequence, [B], optionally weighted by
     position."""
@@ -226,8 +244,8 @@ def scst_loss(
     s_ent = _pad_to(both['entropy'], t, 0.0)[b:]
     s_reward = _total_reward(s_tokens, targets, s_mask, cfg, luts, family_predictions)
 
-    s_logp = rescore_log_probs(decoder, z, stoich, heads_vec, s_tokens, cfg, luts,
-                               temperature=temperature)
+    s_logp = _rescore_remat(decoder, z, stoich, heads_vec, s_tokens, cfg, luts,
+                            temperature=temperature)
     adv = s_reward - g_reward
     per_sample = -(adv * (s_logp * s_mask).sum(dim=1))
     if sc_weight is not None:
@@ -263,8 +281,8 @@ def rloo_loss(
     s_tokens = _pad_to(sample['tokens'], t, 0)
     s_mask = _pad_to(sample['mask'], t, 0.0)
     s_ent = _pad_to(sample['entropy'], t, 0.0)
-    s_logp = rescore_log_probs(decoder, z_k, stoich_k, heads_k, s_tokens, cfg, luts,
-                               temperature=temperature)
+    s_logp = _rescore_remat(decoder, z_k, stoich_k, heads_k, s_tokens, cfg, luts,
+                            temperature=temperature)
 
     task_r = _total_reward(s_tokens, targets.repeat(k, 1), s_mask, cfg, luts, fam_k)
     seq_ent = _seq_entropy(s_ent, s_mask, position_entropy_w)

@@ -136,7 +136,8 @@ def evaluate_autoregressive(
         full_idx = np.concatenate([idx, np.zeros(pad_n, np.int64)]) if pad_n else idx
         out = eval_batch(encoder, decoder, _to_device(ds.batch(full_idx), device), gcfg,
                          type_masks=type_masks)
-        out = {k: v.cpu().numpy() for k, v in out.items()}
+        out = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
+               for k, v in out.items()}
         m = len(idx)
 
         targets = ds.tokens[idx][:, 1:]

@@ -11,6 +11,13 @@ three parameter groups: the encoder, the decoder and the physics-Z
 projection, as the JAX step runs ``tx_enc``, ``tx_dec`` and a second
 ``tx_enc`` state.
 
+``TrainConfig.compute_dtype`` is the models' compute dtype, as the JAX
+loop passes it to ``create_train_state``: with 'bfloat16' the models
+compute in bf16 on float32 parameters (models/layers.py), the gradients
+and AdamW moments are float32, and the models' outputs are cast to
+float32 at the loss boundary (``_f32``), so every loss, the RL branch's
+family predictions included, is computed in float32.
+
 Differences from the JAX step, all in how and none in what it computes:
 - the state holds ``nn.Module``s and ``torch.optim.AdamW``s and is updated
   IN PLACE (the step returns the same object);
@@ -70,9 +77,30 @@ def stoich_conditioning(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.cat([batch['element_fractions'] * em, count], dim=1)
 
 
+COMPUTE_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+
+
+def compute_dtype(tcfg: TrainConfig) -> torch.dtype:
+    """The torch dtype of ``tcfg.compute_dtype``; raises ``ValueError``
+    for a name other than 'float32' or 'bfloat16'."""
+    if tcfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f'compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, '
+                         f'got {tcfg.compute_dtype!r}')
+    return COMPUTE_DTYPES[tcfg.compute_dtype]
+
+
+def _f32(out: Dict[str, Optional[torch.Tensor]]) -> Dict[str, Optional[torch.Tensor]]:
+    """The loss boundary: every floating tensor of a model's outputs in
+    float32 (the identity on float32 outputs)."""
+    return {k: v.float() if isinstance(v, torch.Tensor) and v.is_floating_point() else v
+            for k, v in out.items()}
+
+
 def check_supported(tcfg: TrainConfig) -> None:
     """Raises ``NotImplementedError`` for a config whose step needs a part
-    of the JAX step that is not ported yet, naming the part."""
+    of the JAX step that is not ported yet, naming the part, and
+    ``ValueError`` for a compute dtype other than float32 or bfloat16."""
+    compute_dtype(tcfg)
     missing = []
     if tcfg.hungarian_enabled:
         missing.append('hungarian_enabled (set decoder and Hungarian matching: '
@@ -166,13 +194,15 @@ def create_train_state(mcfg: ModelConfig, tcfg: TrainConfig, seed: int = 0,
                        device='cuda') -> TrainState:
     """Encoder, decoder and (with ``use_physics_z`` and
     ``magpie_proj_learnable``) the Magpie projection on ``device``, with
-    weights drawn from ``seed`` (models/init.py, then the projection), in
-    float32, and fresh optimizers."""
+    float32 weights drawn from ``seed`` (models/init.py, then the
+    projection), the models computing in ``tcfg.compute_dtype``, and fresh
+    optimizers."""
     check_supported(tcfg)
     device = resolve_device(device)
+    dtype = compute_dtype(tcfg)
     gen = torch.Generator().manual_seed(seed)
-    encoder = init_params(MaterialsEncoder(mcfg, device=device), gen)
-    decoder = init_params(FormulaDecoder(mcfg, device=device), gen)
+    encoder = init_params(MaterialsEncoder(mcfg, device=device, dtype=dtype), gen)
+    decoder = init_params(FormulaDecoder(mcfg, device=device, dtype=dtype), gen)
     pz_proj = None
     if tcfg.use_physics_z and tcfg.magpie_proj_learnable:
         pz_proj = init_magpie_proj(gen, mcfg.magpie_dim, device=device)
@@ -220,6 +250,8 @@ def train_loss(state: TrainState, tcfg: TrainConfig, luts: Mapping[str, torch.Te
     heads_vec = enc.heads_pred_for_decoder(enc_out)
     stoich = stoich_conditioning(batch)
     dec_out = dec(enc_out['z'], batch['tokens'], stoich, heads_vec)
+    # the loss boundary; heads_vec stays in the compute dtype, as in JAX
+    enc_out, dec_out = _f32(enc_out), _f32(dec_out)
     rl = reward_mean = None
     if generator is not None:
         # SCST or RLOO on the batch's targets, superconductors weighted 1

@@ -1,7 +1,8 @@
 """The kernels on the card against their plain PyTorch versions (K1, the
 decode-step attention; K2, the flash-attention forward), one train step
-on the card against the same step on the CPU, and the dataset eval
-through K1 against the plain attention path.
+on the card against the same step on the CPU, the dataset eval through
+K1 against the plain attention path, and K1's bf16 instance at the bench's
+shapes and in a bf16 greedy rollout against the plain path.
 
 Needs an NVIDIA GPU and nvcc, and imports no JAX, so that it runs on a
 machine with the card only:
@@ -246,3 +247,85 @@ def test_evaluate_autoregressive_through_k1_matches_plain_path(cuda):
         step = int((a['generated'][i] != p['generated'][i]).int().argmax())
         assert min(a['margin'][i, step].item(), p['margin'][i, step].item()) < 1e-4, r
     assert len(differ) <= 5, differ
+
+
+@pytest.mark.parametrize('b', [512, 1024])
+def test_kernel_bf16_at_the_bench_shapes(cuda, b):
+    """K1's bf16 instance as the bench's paths run it: the gen probe's 512
+    rows and the SCST rollout of 512 (1,024 rows), T=30, Dh=72, at every
+    position."""
+    for position in range(30):
+        q, kn, vn, kc, vc = _inputs(cuda, b, 30, torch.bfloat16, seed=position)
+        kc_ref, vc_ref = kc.clone(), vc.clone()
+        out = decode_step_attention(q, kn, vn, kc, vc, position)
+        ref = decode_step_attention_ref(q, kn, vn, kc_ref, vc_ref, position)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+        assert torch.equal(kc, kc_ref) and torch.equal(vc, vc_ref)
+
+
+def test_bf16_greedy_rollout_through_k1_matches_plain_path(cuda):
+    """A bf16 greedy rollout (bench.py's gates, the stop and type heads
+    fixed so that it runs all 29 steps) of 256 rows at ModelConfig()'s
+    widths cut to 2 layers, with seeded weights, through K1 and through the
+    plain attention path: over K1's stream forced into both, their token
+    logits and top two type logits differ by at most half of 2**-4; the streams are equal
+    except where the top two gated logits or the top two type logits were
+    within 2**-4 in either run (random type heads are close: about a third
+    of the rows), in at most half of the rows.  K1's bf16 instance runs once a layer a step."""
+    import dataclasses
+    from superconductor_vae_tpu_torch.bench import gen_config
+    from superconductor_vae_tpu_torch.models import FormulaDecoder, ModelConfig, init_params
+    from superconductor_vae_tpu_torch.models.layers import cast_weights_once
+    from superconductor_vae_tpu_torch.generation import generate_with_kv_cache, sequence_mask
+    from superconductor_vae_tpu_torch.tokenizer import BOS_ID, EOS_ID, default_tokenizer
+    from superconductor_vae_tpu_torch.training import build_luts
+
+    tie, b = 2 ** -4, 256
+    cfg = dataclasses.replace(ModelConfig(), num_layers=2, pallas_decode=True)
+    k1 = init_params(FormulaDecoder(cfg, device=cuda, dtype=torch.bfloat16),
+                     torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad():
+        k1.stop_d2.weight.zero_()
+        k1.stop_d2.bias.fill_(-4.0)
+        k1.type_d3.bias[4] = -30.0
+    plain = FormulaDecoder(dataclasses.replace(cfg, pallas_decode=False), device=cuda,
+                           dtype=torch.bfloat16).eval()
+    plain.load_state_dict(k1.state_dict())
+    g = torch.Generator(device=cuda).manual_seed(1)
+    cond = (torch.randn(b, cfg.latent_dim, generator=g, device=cuda),
+            torch.rand(b, cfg.stoich_input_dim, generator=g, device=cuda),
+            torch.randn(b, cfg.heads_input_dim, generator=g, device=cuda))
+    tm = build_luts(default_tokenizer(max_len=cfg.max_len), device=cuda)['type_masks']
+    by_dtype = dict(decode_step_attention.launches_by_dtype)
+    runs = [generate_with_kv_cache(d, *cond, None, gen_config(cfg), type_masks=tm)
+            for d in (k1, plain)]
+    assert decode_step_attention.launches_by_dtype[torch.bfloat16] \
+        == by_dtype[torch.bfloat16] + cfg.num_layers * (cfg.max_len - 1)
+    assert not bool((runs[0]['tokens'] == EOS_ID).any())     # all 29 steps
+    worst = 0.0
+    type_gap = [torch.zeros_like(r['margin']) for r in runs]
+    with torch.no_grad(), cast_weights_once(k1), cast_weights_once(plain):
+        state = [(d.memory_kv(d.build_memory(*cond)), *d.init_cache(b)) for d in (k1, plain)]
+        tok = torch.full((b,), BOS_ID, dtype=torch.long, device=cuda)
+        for pos in range(cfg.max_len - 1):
+            heads = [d.decode_step(tok, pos, kc, vc, m)[0]
+                     for d, (m, kc, vc) in zip((k1, plain), state)]
+            # the token logits, and the type logits that pick the mask (each
+            # run's top two)
+            top2 = [h['type_logits'].float().topk(2, dim=-1).values for h in heads]
+            worst = max(worst, (heads[0]['logits'].float()
+                                - heads[1]['logits'].float()).abs().max().item(),
+                        (top2[0] - top2[1]).abs().max().item())
+            for gap, t2 in zip(type_gap, top2):
+                gap[:, pos] = t2[:, 0] - t2[:, 1]
+            tok = runs[0]['tokens'][:, pos]
+    assert 2 * worst <= tie, worst
+    mask = sequence_mask(runs[1]['tokens']).bool()
+    diff = (runs[0]['tokens'] != runs[1]['tokens']) & mask
+    for r in diff.any(dim=1).nonzero()[:, 0].tolist():
+        s = int(diff[r].int().argmax())
+        near = min(min(run['margin'][r, s].item(), gap[r, s].item())
+                   for run, gap in zip(runs, type_gap))
+        assert near < tie, r
+    parted = int(diff.any(dim=1).sum())
+    assert parted <= b // 2, parted
