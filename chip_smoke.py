@@ -103,7 +103,28 @@
    (d) one bf16 train step of 8 rows at ModelConfig() on the card against
    the CPU: the loss terms and the AdamW first moments within half of the
    CPU's own bf16-vs-float32 difference; the updates printed beside them.
-12. Prints the kernels' JSON line, then as its last line
+12. Loop phase: training/train_loop.py train(), the system's training
+   entry point, at run4's architecture (ModelConfig() at the corpus's
+   magpie_dim 78) in float32 with K1 in the rollouts, on the first 4,096
+   rows of the loaded corpus, batch 256, without the set decoder and the
+   round-trip loss, an eval of 2 batches every epoch and a checkpoint every
+   2: 4 epochs (epoch 1 an SCST epoch, activated by the RL controller's
+   plateau rule; the others teacher-forced through make_epoch_runner),
+   then a second call with resume='auto' for one more.  Checks (a) the
+   epochs' rows, finite losses, one metrics-CSV row an epoch across both
+   calls, each epoch's samples/s printed beside the train phase's
+   step-alone rate; (b) K1 launched 12 times a decode step of every eval
+   and RL rollout; (c) load_checkpoint gives back the saved parameters,
+   AdamW moments, step counts and controllers bit for bit, each save's
+   seconds and size printed, and the resume starts at the saved epoch + 1;
+   (d) one accumulated update (k=2) of 8 rows on the card against the CPU
+   (metrics 1e-4 relative, moments 1e-3; 2 of the 12 layers), and its
+   accumulators through a save and a load; (e) one epoch of
+   make_epoch_runner under the profiler (the device's busy share) and
+   under torch.cuda.set_sync_debug_mode: no operation of the epoch makes
+   the host wait for the card, and the one read of its sums does; then
+   runner and per-batch epochs timed in turns.
+13. Prints the kernels' JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -1736,6 +1757,353 @@ def bf16_step_check(torch, dev):
                   f'{err:.3e} > {gap / 2:.3e}')
 
 
+# -- loop phase -----------------------------------------------------------------
+
+LOOP_ROWS = 4096                  # the first rows of the loaded corpus
+LOOP_EPOCHS = (4, 5)              # epochs after the first call, after the resume
+LOOP_DIR = ROOT / 'outputs' / 'chip_smoke_loop'
+
+
+def profile_counts(torch, fn):
+    """``fn`` under torch.profiler: (wall ms, device busy ms, kernel
+    launches).  Device activity only: the host's op events of an epoch
+    (about 60,000 launches) take the profiler longer to gather than the
+    epoch takes to run."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, 'is_user_annotation', False)]
+    kernels = [e for e in device if not e.key.startswith('Memcpy') and
+               not e.key.startswith('Memset')]
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    return wall, busy, sum(e.count for e in kernels)
+
+
+def host_syncs(torch, fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode('warn')``: (its
+    result, the operations in it that made the host wait for the card,
+    counted by the file and line that called them)."""
+    import collections
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('warn')
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    return out, collections.Counter(f'{Path(w.filename).name}:{w.lineno}' for w in caught
+                                    if 'synchronizing CUDA operation' in str(w.message))
+
+
+class Timings:
+    """Stands in for each ``owner.name`` of ``targets`` while entered (a
+    module's function or a class's method) and keeps (seconds, result) of
+    each call by name."""
+
+    def __init__(self, torch, *targets):
+        self.torch, self.targets, self.calls = torch, targets, {}
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.calls.setdefault(name, []).append((time.perf_counter() - t0, out))
+            return out
+        return timed
+
+    def __enter__(self):
+        self.originals = [(owner, name, getattr(owner, name)) for owner, name in self.targets]
+        for owner, name, fn in self.originals:
+            setattr(owner, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.originals:
+            setattr(owner, name, fn)
+
+
+def loop_config(cfg, **kw):
+    """The loop phase's TrainConfig: batch 256 without the set decoder and
+    the round-trip loss, an eval of 2 batches every epoch, a checkpoint
+    every 2 epochs, and RL (SCST, rl_w 1 ramped by its warm-up) activated
+    at epoch 1 by its plateau rule, every 4th epoch from there: epoch 1 is
+    the one RL epoch, the others teacher-forced."""
+    from superconductor_vae_tpu_torch.ops.rl import RLConfig
+    from superconductor_vae_tpu_torch.training import TrainConfig
+    return TrainConfig(**dict(
+        num_epochs=LOOP_EPOCHS[0], batch_size=BATCH, max_formula_len=cfg.max_len,
+        skew_transform='rank_gauss', hungarian_enabled=False, use_round_trip=False,
+        eval_interval=1, eval_max_batches=2, checkpoint_interval=2,
+        rl_weight=0.0, rl_reactivation_min_exact=0.0, rl_reactivation_window=2,
+        rl_reactivation_force_exact=1.0, rl_min_ar_exact=0.0, rl_epoch_interval=4,
+        rl=RLConfig(max_len=cfg.max_len)) | kw)
+
+
+def _same_tree(a, b):
+    """Nested dicts and lists of tensors (card or host) equal bit for bit."""
+    if hasattr(a, 'dtype') and hasattr(a, 'cpu'):
+        return a.dtype == b.dtype and a.shape == b.shape and bool((a.cpu() == b.cpu()).all())
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_tree(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def loop_phase(torch, dev, ds, step_rate):
+    """training/train_loop.py train() at run4's architecture in float32 on
+    the first LOOP_ROWS rows, with K1 in the eval's and the RL epoch's
+    rollouts, then a resume for one more epoch.  Checks (a) the loop ran:
+    the epochs' rows, finite losses, the metrics CSV appended across the
+    resume; (b) K1 launched 12 times a decode step of every eval and RL
+    rollout; (c) the checkpoint round trip: what load_checkpoint gives back
+    equals the saved state bit for bit, the controllers too, and the resume
+    starts at the saved epoch + 1; (d) one accumulated update (k=2) of 8
+    rows on the card against the CPU, and its accumulators through a
+    save and a load; (e) one epoch of make_epoch_runner under the
+    profiler (the device's busy share) and under the sync debug mode: no
+    operation of the epoch makes the host wait for the card, and its one
+    read of the sums does.  Returns K1's launches."""
+    import math
+    import shutil
+    import numpy as np
+    from superconductor_vae_tpu_torch.analysis import TopologyAnalyzer
+    from superconductor_vae_tpu_torch.checkpoint import load_checkpoint
+    from superconductor_vae_tpu_torch.generation.latent_analyzer import LatentSpaceAnalyzer
+    from superconductor_vae_tpu_torch.models import ModelConfig, config_from_meta
+    from superconductor_vae_tpu_torch.ops import rl
+    from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+    from superconductor_vae_tpu_torch.tokenizer import EOS_ID
+    from superconductor_vae_tpu_torch.training import evaluate, train, train_loop
+
+    t_phase = time.perf_counter()
+    meta = json.loads(META.read_text())
+    cfg = config_from_meta(meta['model_config'], pallas_decode=True)
+    check(cfg == ModelConfig(magpie_dim=ds.magpie_dim, pallas_decode=True),
+          "loop: run4's config is not ModelConfig() at the corpus's magpie_dim")
+    sub = ds.subset(np.arange(LOOP_ROWS))
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    logs = []
+    calls = []
+    with CallLog(evaluate, 'generate_with_kv_cache') as gen_log, \
+            CallLog(rl, '_rollout') as rl_log, \
+            Timings(torch, (train_loop, 'save_checkpoint'), (train_loop, 'evaluate_autoregressive'),
+                    (LatentSpaceAnalyzer, 'build_cache'),
+                    (TopologyAnalyzer, 'analyze')) as timings:
+        decode_step_attention.launches = 0
+        for kw in (dict(), dict(num_epochs=LOOP_EPOCHS[1], resume='auto')):
+            t0 = time.perf_counter()
+            out = train(model_config=cfg, train_config=loop_config(cfg, **kw), dataset=sub,
+                        output_dir=LOOP_DIR, log_fn=logs.append, device=dev)
+            torch.cuda.synchronize()
+            calls.append((out, time.perf_counter() - t0))
+        launches = decode_step_attention.launches
+    t_parts = {'train() calls': time.perf_counter() - t_phase}
+    for line in logs:
+        print(f'loop: {line}')
+    (first, first_s), (resumed, resumed_s) = calls
+    hist = first['history'] + resumed['history']
+    # (a) the epochs, finite losses, one CSV row an epoch across both calls
+    check([r['epoch'] for r in hist] == list(range(LOOP_EPOCHS[1])),
+          f'loop: epochs {[r["epoch"] for r in hist]}')
+    for r in hist:
+        bad = [k for k in ('total', 'formula_loss', 'tc_loss') if not math.isfinite(r[k])]
+        check(not bad, f'loop: epoch {r["epoch"]}: {bad} not finite')
+    rows = (LOOP_DIR / 'training_metrics.csv').read_text().splitlines()
+    check([int(x.split(',')[0]) for x in rows[1:]] == list(range(LOOP_EPOCHS[1])),
+          f'loop: the metrics CSV holds {rows[1:]}')
+    kinds = ['RL' if r['rl_weight'] > 0 else 'TF' for r in hist]
+    check(kinds.count('RL') == 1 and kinds[1] == 'RL', f'loop: epoch kinds {kinds}')
+    for r, kind in zip(hist, kinds):
+        print(f'loop: epoch {r["epoch"]} ({kind}{", first use" if r["epoch"] == 0 else ""}): '
+              f'{r["samples_per_s"]} samples/s in {r["epoch_time_s"]} s; total '
+              f'{r["total"]:.4f}, rl_weight {r["rl_weight"]:.3f}, true-AR {r["true_ar_exact"]}')
+    tf_rates = [r['samples_per_s'] for r, k in zip(hist[1:], kinds[1:]) if k == 'TF']
+    print(f'loop: TF epochs after the first {tf_rates} samples/s; the train phase\'s step alone '
+          f'{step_rate:.1f} samples/s in this call (epoch / step {min(tf_rates) / step_rate:.3f}'
+          f'-{max(tf_rates) / step_rate:.3f})')
+    # (b) K1 at every decode step of every eval and RL rollout
+    eval_steps = [steps_run(o['tokens'], EOS_ID) for o in gen_log.outputs]
+    rl_steps = [steps_run(o['tokens'], EOS_ID) for o in rl_log.outputs]
+    print(f'loop: eval rollouts {len(eval_steps)} (decode steps {eval_steps}); RL rollouts '
+          f'{len(rl_steps)} of {2 * BATCH} rows (decode steps {rl_steps}); K1 launches {launches}')
+    check(len(eval_steps) == 2 * LOOP_EPOCHS[1] and len(rl_steps) == LOOP_ROWS // BATCH,
+          'loop: eval or RL rollouts missing')
+    check(launches > 0, 'loop: K1 was not launched')
+    check(launches == cfg.num_layers * (sum(eval_steps) + sum(rl_steps)),
+          f'loop: K1 launches {launches} != layers x decode steps '
+          f'{cfg.num_layers * (sum(eval_steps) + sum(rl_steps))}')
+    # (c) the checkpoint round trip on the card
+    saves = [(path.name, secs, sum(f.stat().st_size for f in path.iterdir()))
+             for secs, path in timings.calls.pop('save_checkpoint')]
+    for name, timed in timings.calls.items():
+        print(f'loop: {name}: ' + ', '.join(f'{secs:.2f}' for secs, _ in timed) + ' s')
+    for name, secs, size in saves:
+        print(f'loop: save {name}: {secs:.2f} s, {size / 1e9:.3f} GB '
+              f'({size / 1e9 / secs:.2f} GB/s)')
+    last = f'epoch_{LOOP_EPOCHS[0] - 1:05d}'
+    check(last in [name for name, _, _ in saves], f'loop: saves {saves}')
+    t0 = time.perf_counter()
+    restored, saved_meta = load_checkpoint(LOOP_DIR / 'checkpoints' / last)
+    load_s = time.perf_counter() - t0
+    st = first['state']
+    live = {'step': st.step, 'enc_params': st.encoder.state_dict(),
+            'dec_params': st.decoder.state_dict(), 'pz_params': st.pz_proj.state_dict(),
+            'enc_opt': st.enc_opt.state_dict(), 'dec_opt': st.dec_opt.state_dict(),
+            'pz_opt': st.pz_opt.state_dict()}
+    for key, value in live.items():
+        check(_same_tree(restored[key], value), f'loop: {key} differs after load_checkpoint')
+    check(saved_meta['controllers'] == json.loads(json.dumps(first['controllers'])),
+          'loop: the controllers differ after load_checkpoint')
+    check(resumed['history'][0]['epoch'] == saved_meta['epoch'] + 1,
+          'loop: the resume did not start at the saved epoch + 1')
+    print(f'loop: load_checkpoint {load_s:.2f} s: params, AdamW moments and step counts of '
+          f'the three groups, step {restored["step"]}, and the controllers equal the saved '
+          f'state bit for bit; the resume started at epoch {saved_meta["epoch"] + 1}')
+    state = resumed['state']
+    del first, resumed, restored, live, st
+    shutil.rmtree(LOOP_DIR / 'checkpoints')
+    torch.cuda.empty_cache()
+    t_parts['(a)-(c)'] = time.perf_counter() - t_phase - sum(t_parts.values())
+    accumulation_check(torch, dev, cfg)
+    t_parts['(d)'] = time.perf_counter() - t_phase - sum(t_parts.values())
+    epoch_runner_check(torch, dev, cfg, sub, state, step_rate)
+    t_parts['(e)'] = time.perf_counter() - t_phase - sum(t_parts.values())
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    print(f'loop: train() {calls[0][1]:.1f} s ({LOOP_EPOCHS[0]} epochs) + {calls[1][1]:.1f} s '
+          f'(resume, 1 epoch); the phase {time.perf_counter() - t_phase:.1f} s: '
+          + ', '.join(f'{k} {v:.1f} s' for k, v in t_parts.items()))
+    return launches
+
+
+def accumulation_check(torch, dev, cfg):
+    """(d) One accumulated update (k=2, two mini-steps of 4 rows) at run4's
+    widths with 2 of its 12 layers (the train phase holds the whole depth
+    card against CPU), dropout off, on the card and on the CPU from the
+    same seed:
+    every mini-step's metrics, then each group's AdamW first moment and
+    update (``check_updates``); the card's accumulators after the first
+    mini-step through save_checkpoint and load_checkpoint, bit for bit."""
+    import numpy as np
+    from superconductor_vae_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from superconductor_vae_tpu_torch.data import synthetic_dataset
+    from superconductor_vae_tpu_torch.training import (
+        build_luts, create_train_state, default_dyn, make_train_step)
+    from superconductor_vae_tpu_torch.training.evaluate import _to_device
+    from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
+    cfg0 = dataclasses.replace(cfg, num_layers=2, dropout=0.0, pallas_decode=False)
+    tcfg = loop_config(cfg0, accumulation_steps=2, batch_size=N_CPU_ROWS // 2)
+    data = synthetic_dataset(n=N_CPU_ROWS, max_len=cfg.max_len, magpie_dim=cfg.magpie_dim,
+                             seed=SEED + 4)
+    dyn = dict(default_dyn(tcfg), physz_w=1.0)
+    runs = []
+    for where in (dev, torch.device('cpu')):
+        st = create_train_state(cfg0, tcfg, seed=SEED + 4, device=where)
+        step = make_train_step(tcfg, build_luts(default_tokenizer(max_len=cfg.max_len),
+                                                device=where))
+        before = _group_tensors(st)
+        metrics = []
+        for half in range(2):
+            st, m = step(st, _to_device(data.batch(np.arange(half * 4, half * 4 + 4)), where),
+                         SEED, dyn)
+            metrics.append(m)
+            if half == 0 and where == dev:
+                acc = [[a.clone() for a in opt.acc_grads] for _, opt in st.groups()]
+                check(all(opt.mini_step == 1 for _, opt in st.groups()), 'loop (d): mini-step')
+                unmoved = _group_tensors(st)
+                check(all(torch.equal(before[g][k][0], unmoved[g][k][0])
+                          for g in before for k in before[g]),
+                      'loop (d): parameters moved between updates')
+                path = save_checkpoint(LOOP_DIR / 'accumulation', st, cfg0, tcfg, epoch=0)
+                restored, _ = load_checkpoint(path)
+                check(all(_same_tree(restored[name]['acc_grads'], a) for name, a in
+                          zip(('enc_opt', 'dec_opt', 'pz_opt'), acc)),
+                      'loop (d): the accumulators differ after load_checkpoint')
+                check(restored['enc_opt']['mini_step'] == 1, 'loop (d): the mini-step')
+                del restored
+                print('loop (d): after the first mini-step: parameters unmoved; the '
+                      'accumulators of the three groups equal through save and load')
+        runs.append((metrics, before, _group_tensors(st)))
+        check(all(int(opt.state[p]['step']) == 1 for params, opt in st.groups()
+                  for p in params), 'loop (d): AdamW did not count one update')
+        del st
+    (m_c, before_c, after_c), (m_h, before_h, after_h) = runs
+    for i in range(2):
+        check_metrics('loop (d)', m_c[i], m_h[i], f'mini-step {i + 1} metrics')
+    check_updates(torch, 'loop (d)', before_c, after_c, before_h, after_h, tcfg.learning_rate)
+
+
+def epoch_runner_check(torch, dev, cfg, sub, st, step_rate):
+    """(e) One teacher-forced epoch of make_epoch_runner (LOOP_ROWS / BATCH
+    steps over the device-resident rows) from the resumed run's state
+    ``st``, with the host's one read of its metric sums: under the
+    profiler, the device's busy share; under the sync debug mode, the
+    epoch without its read makes the host wait for the card at no
+    operation, and the read does (so the mode sees the copy).  Then epochs
+    through the runner and through the per-batch path (a host gather and a
+    copy a step) in turns, timed."""
+    import numpy as np
+    from superconductor_vae_tpu_torch.data import WeightedEpochSampler
+    from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
+    from superconductor_vae_tpu_torch.training import (
+        build_luts, default_dyn, make_epoch_runner, make_train_step)
+    from superconductor_vae_tpu_torch.training.evaluate import _to_device
+    from superconductor_vae_tpu_torch.training.train_loop import _read_sums
+    tcfg = loop_config(cfg)
+    luts = build_luts(default_tokenizer(max_len=cfg.max_len), device=dev)
+    data = _to_device(sub.batch(np.arange(len(sub))), dev)
+    sampler = WeightedEpochSampler(np.ones(len(sub)), BATCH, seed=SEED)
+    run = make_epoch_runner(tcfg, luts)
+    step = make_train_step(tcfg, luts)
+    dyn = default_dyn(tcfg)
+    n_steps = sampler.n_batches()
+
+    def runner_epoch(e, read=True):
+        nonlocal st
+        st, sums = run(st, data, np.stack(list(sampler.epoch(e))), 1, dyn)
+        return _read_sums(sums, n_steps) if read else sums
+
+    def per_batch_epoch(e):
+        nonlocal st
+        sums = {}
+        for idx in sampler.epoch(e):
+            st, m = step(st, _to_device(sub.batch(idx), dev), 1, dyn)
+            sums = {k: sums[k] + v if k in sums else v for k, v in m.items()}
+        return _read_sums(sums, n_steps)
+
+    wall, busy, n_kernels = profile_counts(torch, lambda: runner_epoch(1))
+    check(busy > 0, 'loop (e): the profiler recorded no device time')
+    print(f'loop (e): one epoch of make_epoch_runner ({n_steps} steps of {BATCH}) with the '
+          f'read of its sums: wall {wall:.1f} ms, device busy {busy:.1f} ms '
+          f'({100 * busy / wall:.1f}%), {n_kernels} launches')
+    sums, epoch_syncs = host_syncs(torch, lambda: runner_epoch(2, read=False))
+    _, read_syncs = host_syncs(torch, lambda: _read_sums(sums, n_steps))
+    print(f'loop (e): operations that made the host wait for the card: in an epoch of '
+          f'{n_steps} steps {dict(epoch_syncs)}, in the read of its sums {dict(read_syncs)}')
+    check(not epoch_syncs, f'loop (e): the epoch made the host wait at {dict(epoch_syncs)}')
+    check(sum(read_syncs.values()) >= 1, 'loop (e): the sync debug mode missed the read')
+    rates = {'runner': [], 'per batch': []}
+    for i, how in enumerate(('runner', 'per batch', 'per batch', 'runner')):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (runner_epoch if how == 'runner' else per_batch_epoch)(3 + i)
+        rates[how].append(n_steps * BATCH / (time.perf_counter() - t0))
+    print('loop (e): TF epochs in turns: ' + '; '.join(
+        f'{how} ' + ', '.join(f'{x:.1f}' for x in v) + ' samples/s' for how, v in rates.items())
+        + f'; the train phase\'s step alone {step_rate:.1f}')
+    del st, data
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1768,13 +2136,15 @@ def main() -> int:
     del encoder, decoder
     torch.cuda.empty_cache()
     k2_rows, k2_err, k2_launches = k2_phase(torch, dev)
-    train_phase(torch, dev, batches)
+    step_rate, _ = train_phase(torch, dev, batches)
     rl_results = rl_phase(torch, dev, batches)
     k1_bf16, k1_bf16_err = k1_bf16_phase(torch, dev)
     bench_launches, _ = bench_phase(torch, dev)
+    loop_launches = loop_phase(torch, dev, ds, step_rate)
 
     k1_paths = {'eval': launches, 'eval corpus': corpus_launches,
-                'rl scst': rl_results['scst'][1], 'rl rloo': rl_results['rloo'][1]}
+                'rl scst': rl_results['scst'][1], 'rl rloo': rl_results['rloo'][1],
+                'loop': loop_launches}
     launches = sum(k1_paths.values())
     print(f'total: {time.perf_counter() - t_start:.1f} s')
     print(f'kernels: ["K1 decode_step_attention", "K1 decode_step_attention bf16", '

@@ -9,8 +9,11 @@ superconductors), contrastive and family labels, compositional targets,
 generative-holdout exclusion and the UNK filter.  It reads the CSV with the
 standard library alone (``read_csv_rows``), since the card's machine has no
 pandas, and re-creates the parts of ``pandas.read_csv`` the JAX loader
-relies on.  It keeps no npz cache.  Order augmentation (A.11) and the
-Magpie bridge (A.16) are not ported yet.
+relies on.  It keeps no npz cache.  Order augmentation
+(``order_augment``, ``resample_order_augmentation``) appends element-order
+respellings as rows, with ``DatasetArrays.aug_group`` mapping each row to
+its source; ``compute_sample_weights`` gives the weighted sampler's
+weights.  The Magpie bridge (A.16) is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from ..chem.elements import SYMBOL_TO_Z
 from ..models.family_classifier import SuperconductorFamily, classify_batch
 from ..tokenizer import (FRAC_UNK_ID, UNK_ID, FractionAwareTokenizer,
                          default_tokenizer)
+from .canonical_ordering import OrderAugmentation, join_ordered, parse_ordered
 from .compositional_targets import normalized_compositional_targets
 
 MAX_ELEMENTS = 12
@@ -264,8 +268,9 @@ class NormStats:
 
 @dataclasses.dataclass
 class DatasetArrays:
-    """Fixed-shape host arrays for the whole dataset.  The JAX class's
-    ``aug_group`` comes with order augmentation (A.11)."""
+    """Fixed-shape host arrays for the whole dataset.  ``aug_group`` holds
+    each row's source row (rows added by order augmentation share their
+    source's index); None without augmentation."""
     formulas: List[str]
     tokens: np.ndarray            # [N, max_len] int32
     element_indices: np.ndarray   # [N, 12] int32
@@ -279,6 +284,7 @@ class DatasetArrays:
     family: np.ndarray            # [N] int32 14-class
     comp_targets: np.ndarray      # [N, 15] float32 normalized
     norm_stats: NormStats
+    aug_group: Optional[np.ndarray] = None   # [N] int32
 
     def __len__(self):
         return len(self.tokens)
@@ -291,7 +297,8 @@ class DatasetArrays:
         """The rows ``idx`` (copies), for random or stratified eval slices."""
         idx = np.asarray(idx)
         return dataclasses.replace(
-            self, formulas=[self.formulas[i] for i in idx], **self.batch(idx))
+            self, formulas=[self.formulas[i] for i in idx], **self.batch(idx),
+            aug_group=self.aug_group[idx] if self.aug_group is not None else None)
 
     def sample_indices(self, n: int, seed: int = 0,
                        stratify_sc: bool = False) -> np.ndarray:
@@ -411,11 +418,11 @@ def load_dataset(
     ``skew_transform``: 'quantile' gaussianizes the |skew| > threshold
     columns through persisted quantile grids; 'rank_gauss' is the legacy
     jittered transform (run3's and run4's checkpoints), drawn from
-    ``default_rng(42)`` one column after another."""
+    ``default_rng(42)`` one column after another.  ``order_augment=K``
+    appends up to K random element-order respellings of every
+    multi-element row, drawn from ``order_augment_seed``."""
     if magpie_bridge is not None:
         raise NotImplementedError('magpie_bridge is not ported yet (A.16)')
-    if order_augment > 0:
-        raise NotImplementedError('order_augment is not ported yet (A.11)')
     tokenizer = tokenizer or default_tokenizer(max_len=max_len)
     rows = read_csv_rows(csv_path)
     formulas, tc_raw, is_sc, hp = rows['formula'], rows['tc'], rows['is_sc'], rows['hp']
@@ -492,7 +499,7 @@ def load_dataset(
         magpie_mean=mg_mean, magpie_std=mg_std,
         magpie_skewed_indices=skewed_idx, magpie_sc_only_norm=sc_only_norm,
         comp_target_stats=comp_stats, magpie_quantile_grids=quantile_grids)
-    return DatasetArrays(
+    ds = DatasetArrays(
         formulas=[f for f, k in zip(formulas, keep) if k],
         tokens=tokens[keep].astype(np.int32),
         element_indices=elem_idx[keep],
@@ -502,3 +509,149 @@ def load_dataset(
         is_sc=is_sc[keep], label=label[keep], hp=hp[keep],
         family=family[keep], comp_targets=comp_targets[keep],
         norm_stats=norm_stats)
+    if order_augment > 0:
+        ds = _apply_order_augmentation(ds, tokenizer, order_augment, order_augment_seed)
+    return ds
+
+
+def _build_aug_rows(spellings: List[str], tokenizer: FractionAwareTokenizer):
+    """Tokenize respellings and build their appearance-order element slots.
+    Returns (tokens [n, max_len], idx, frac, mask [n, 12], ok [n]) where
+    ``ok`` marks respellings that round-tripped through the tokenizer."""
+    toks = tokenizer.encode_batch(spellings).astype(np.int32)
+    n = len(spellings)
+    a_idx = np.zeros((n, MAX_ELEMENTS), np.int32)
+    a_frac = np.zeros((n, MAX_ELEMENTS), np.float32)
+    a_mask = np.zeros((n, MAX_ELEMENTS), bool)
+    ok = np.ones(n, bool)
+    for j, f in enumerate(spellings):
+        comp = parse_formula_composition(f)       # appearance order, sites summed
+        if not comp or len(comp) > MAX_ELEMENTS:
+            ok[j] = False
+            continue
+        total = sum(comp.values()) or 1.0
+        for s, (el, qty) in enumerate(comp.items()):
+            a_idx[j, s] = SYMBOL_TO_Z[el]
+            a_frac[j, s] = qty / total
+            a_mask[j, s] = True
+        # a respelling is the original's tokens reordered, so it fits
+        # max_len iff the original did; UNK appears only if it failed to
+        # round-trip through the tokenizer
+        if ((toks[j] == UNK_ID) | (toks[j] == FRAC_UNK_ID)).any():
+            ok[j] = False
+    return toks, a_idx, a_frac, a_mask, ok
+
+
+def resample_order_augmentation(ds: DatasetArrays, tokenizer: FractionAwareTokenizer,
+                                seed: int) -> DatasetArrays:
+    """Redraws the element-order respelling of every augmented row (same
+    row count, same source rows, fresh permutations from ``seed``).  A
+    row whose fresh respelling fails to round-trip keeps its previous
+    one; source rows are untouched."""
+    if ds.aug_group is None:
+        return ds
+    aug_rows = np.where(ds.aug_group != np.arange(len(ds)))[0]
+    if len(aug_rows) == 0:
+        return ds
+    rng = np.random.default_rng(seed)
+    spellings = []
+    for r in aug_rows:
+        src_f = ds.formulas[ds.aug_group[r]]
+        parts = parse_ordered(src_f)
+        if len(parts) > 1:
+            order = rng.permutation(len(parts))
+            spellings.append(join_ordered([parts[i] for i in order]))
+        else:
+            spellings.append(src_f)
+    toks, a_idx, a_frac, a_mask, ok = _build_aug_rows(spellings, tokenizer)
+    tokens = ds.tokens.copy()
+    e_idx = ds.element_indices.copy()
+    e_frac = ds.element_fractions.copy()
+    e_mask = ds.element_mask.copy()
+    upd = aug_rows[ok]
+    formulas = np.array(ds.formulas, dtype=object)
+    formulas[upd] = np.array(spellings, dtype=object)[ok]
+    tokens[upd] = toks[ok]
+    e_idx[upd] = a_idx[ok]
+    e_frac[upd] = a_frac[ok]
+    e_mask[upd] = a_mask[ok]
+    return dataclasses.replace(
+        ds, formulas=list(formulas), tokens=tokens,
+        element_indices=e_idx, element_fractions=e_frac, element_mask=e_mask)
+
+
+def _apply_order_augmentation(ds: DatasetArrays, tokenizer: FractionAwareTokenizer,
+                              k: int, seed: int) -> DatasetArrays:
+    """Appends up to ``k`` random element-order respellings of every
+    multi-element row as rows of their own.  Tokens and element slots
+    follow each spelling's appearance order; Tc, Magpie, the labels and
+    the compositional targets are the source row's.  A respelling that
+    does not round-trip through the tokenizer is skipped."""
+    aug = OrderAugmentation(n_augmentations=k, seed=seed)
+    src_rows: List[int] = []
+    spellings: List[str] = []
+    for i, f in enumerate(ds.formulas):
+        for g in aug.augment(f, include_original=False):
+            src_rows.append(i)
+            spellings.append(g)
+    if not spellings:
+        return ds
+    toks, a_idx, a_frac, a_mask, ok = _build_aug_rows(spellings, tokenizer)
+    src = np.asarray(src_rows)[ok]
+    return DatasetArrays(
+        formulas=ds.formulas + [s for s, o in zip(spellings, ok) if o],
+        tokens=np.concatenate([ds.tokens, toks[ok]]),
+        element_indices=np.concatenate([ds.element_indices, a_idx[ok]]),
+        element_fractions=np.concatenate([ds.element_fractions, a_frac[ok]]),
+        element_mask=np.concatenate([ds.element_mask, a_mask[ok]]),
+        tc=np.concatenate([ds.tc, ds.tc[src]]),
+        magpie=np.concatenate([ds.magpie, ds.magpie[src]]),
+        is_sc=np.concatenate([ds.is_sc, ds.is_sc[src]]),
+        label=np.concatenate([ds.label, ds.label[src]]),
+        hp=np.concatenate([ds.hp, ds.hp[src]]),
+        family=np.concatenate([ds.family, ds.family[src]]),
+        comp_targets=np.concatenate([ds.comp_targets, ds.comp_targets[src]]),
+        norm_stats=ds.norm_stats,
+        aug_group=np.concatenate([np.arange(len(ds)), src]).astype(np.int32),
+    )
+
+
+def compute_sample_weights(
+    ds: DatasetArrays,
+    balanced: bool = True,
+    oversample_hard: bool = True,
+    oversample_length_base: float = 15.0,
+    oversample_high_tc: bool = True,
+    tc_bins: Optional[Dict[float, float]] = None,
+) -> np.ndarray:
+    """Weighted-sampling weights, normalised to sum 1: SC balance x
+    hard-length x high-Tc boosts (reference: train_v12_clean.py:2179-2258),
+    each source row's mass split over its order-augmented spellings."""
+    n = len(ds)
+    w = np.ones(n, np.float64)
+    if balanced:
+        n_sc = int((ds.is_sc == 1).sum())
+        n_non = n - n_sc
+        # balance only when the minority class is substantial: 50/50 over a
+        # handful of minority rows would replay them hundreds of times
+        minority = min(n_sc, n_non)
+        if minority >= max(20, int(0.01 * n)):
+            w = np.where(ds.is_sc == 1, 1.0 / n_sc, 1.0 / n_non)
+    if oversample_hard:
+        seq_len = (ds.tokens != 0).sum(axis=1).astype(np.float64)
+        n_elem = ds.element_mask.sum(axis=1).astype(np.float64)
+        length_boost = 1.0 + np.clip(
+            (seq_len - oversample_length_base) / oversample_length_base, 0, 3.0)
+        elem_boost = 1.0 + 0.5 * np.clip(n_elem - 3, 0, 4.0)
+        w = w * length_boost * elem_boost
+    if oversample_high_tc:
+        bins = tc_bins or {50.0: 3.0, 100.0: 10.0}
+        tc_k = ds.norm_stats.tc_to_kelvin(ds.tc)
+        boost = np.ones(n)
+        for thr in sorted(bins):
+            boost[(tc_k >= thr) & (ds.is_sc == 1)] = bins[thr]
+        w = w * boost
+    if ds.aug_group is not None:
+        counts = np.bincount(ds.aug_group, minlength=ds.aug_group.max() + 1)
+        w = w / counts[ds.aug_group]
+    return (w / w.sum()).astype(np.float64)

@@ -82,8 +82,10 @@ class ElementAttention(nn.Module):
         keys = self.key_proj(embeds).reshape(b, n, self.n_heads, hd)
         values = self.value_proj(embeds).reshape(b, n, self.n_heads, hd)
         scores = torch.einsum('hd,bnhd->bhn', self.query.to(self.dtype), keys)
-        scores = scores / torch.tensor(hd, dtype=self.dtype,
-                                       device=scores.device).sqrt()
+        # torch.full fills on the device: a host scalar copied there
+        # would make the host wait for the device
+        scores = scores / torch.full((), hd, dtype=self.dtype,
+                                     device=scores.device).sqrt()
         scores = scores.masked_fill(~mask[:, None, :],
                                     torch.finfo(self.dtype).min)
         attn = torch.softmax(scores, dim=-1)

@@ -24,8 +24,9 @@ def mha_attention(
 
     Masked scores take ``finfo.min``, as the JAX function does, so a row
     with every key masked gets uniform weights instead of NaN."""
-    # 1/sqrt(Dh) in q's dtype, as jnp.sqrt(jnp.asarray(dh, q.dtype))
-    scale = 1.0 / torch.tensor(q.shape[-1], dtype=q.dtype, device=q.device).sqrt()
+    # 1/sqrt(Dh) in q's dtype, as jnp.sqrt(jnp.asarray(dh, q.dtype)), filled
+    # on the device (a copy from the host would wait for the device)
+    scale = 1.0 / torch.full((), q.shape[-1], dtype=q.dtype, device=q.device).sqrt()
     scores = torch.einsum('bqhd,bkhd->bhqk', q, k) * scale
     if mask is not None:
         scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)

@@ -28,6 +28,7 @@ from ..tokenizer import (
     EOS_ID, FRACTION_TOKEN_START, PAD_ID, TOKEN_TYPE_ELEMENT,
     TOKEN_TYPE_FRACTION, TOKEN_TYPE_INTEGER,
 )
+from .aux_losses import supcon_loss
 from .constraints import charge_balance_loss, site_occupancy_loss
 from .token_stats import is_element_token
 
@@ -234,9 +235,8 @@ def semantic_unit_loss(
         return tokens.gather(1, order)
 
     def stream_err(unit_types):
-        types = torch.as_tensor(unit_types, device=pred.device)
-        is_p = torch.isin(tp, types) & pred_live
-        is_t = torch.isin(tt, types) & tgt_live
+        is_p = functools.reduce(torch.logical_or, [tp == u for u in unit_types]) & pred_live
+        is_t = functools.reduce(torch.logical_or, [tt == u for u in unit_types]) & tgt_live
         comp_p, comp_t = compact(pred, is_p), compact(targets, is_t)
         n_p, n_t = is_p.sum(dim=1), is_t.sum(dim=1)
         both = idx < torch.minimum(n_p, n_t)[:, None]
@@ -426,10 +426,10 @@ def multitask_loss(
         + dyn.get('physz_w', 0.0) * mult('physics_z') * pz
     )
 
+    # SupCon contrastive (static gate: nothing computed when off)
     if cfg.supcon_weight > 0 and 'label' in batch:
-        raise NotImplementedError(
-            'multitask_loss: the SupCon term (supcon_weight > 0) needs '
-            'ops/aux_losses.py, which is not ported yet')
+        total = total + cfg.supcon_weight * supcon_loss(
+            enc_out['z'], batch['label'], cfg.supcon_temperature)
 
     # ---- metrics ------------------------------------------------------------
     pred = logits.argmax(dim=-1)

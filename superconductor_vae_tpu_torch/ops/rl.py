@@ -180,7 +180,7 @@ def rescore_log_probs(
         if gcfg.hard_stop_threshold > 0:
             force = (stop_prob > gcfg.hard_stop_threshold) & ~finished
             forced = torch.full((logits.shape[-1],), neg_inf, device=logits.device)
-            forced[EOS_ID] = 100.0
+            forced[EOS_ID:EOS_ID + 1].fill_(100.0)
             logits = torch.where(force[..., None], forced, logits)
 
     degenerate = ~torch.isfinite(logits).any(dim=-1) | torch.isnan(logits).any(dim=-1)

@@ -55,7 +55,11 @@ def theory_loss(
     zero = torch.zeros_like(tc)
 
     def soft_excess(x, cap):
-        cap = torch.as_tensor(cap, dtype=x.dtype, device=x.device)
+        # a number is filled on the device: copied from the host, it would
+        # make the host wait for the device
+        cap = (torch.as_tensor(cap, dtype=x.dtype, device=x.device)
+               if isinstance(cap, torch.Tensor)
+               else torch.full((), cap, dtype=x.dtype, device=x.device))
         e = (x - cap).clamp_min(0.0) / cap.clamp_min(1.0)
         return e ** 2
 

@@ -108,8 +108,10 @@ def evaluate_autoregressive(
     ``sample_indices``) in batches of ``batch_size``, on the modules'
     device; the last batch is padded with row 0 so that every batch has one
     shape.  ``sample_indices`` in the result holds the true dataset
-    indices of the evaluated rows.  The speculative decode (A.13) is not
-    ported yet."""
+    indices of the evaluated rows, and ``per_sample_margin`` each row's
+    smallest gap between the two largest gated logits over its decode
+    steps (how near its stream came to a tie; the JAX function has no such
+    key).  The speculative decode (A.13) is not ported yet."""
     if speculative_tables is not None:
         raise NotImplementedError('speculative decoding is not ported yet (A.13)')
     gcfg = eval_generation_config(tcfg, decoder.cfg.max_len)
@@ -129,6 +131,7 @@ def evaluate_autoregressive(
     fam_correct = []
     sc_probs, sc_trues = [], []
     pos_errors, pos_masks = [], []
+    margins = []
     errors: List[dict] = []
     for b in range(nb):
         idx = sample_indices[b * batch_size: min((b + 1) * batch_size, n)]
@@ -148,6 +151,12 @@ def evaluate_autoregressive(
         pos_masks.append(mask)
         ar_exact.append(ar)
         tf_exact.append(tf)
+        # each row's smallest top-two logit gap over its steps up to EOS
+        gen = out['generated'][:m]
+        is_eos = gen == EOS_ID
+        last = np.where(is_eos.any(axis=1), is_eos.argmax(axis=1), gen.shape[1] - 1)
+        run = np.arange(gen.shape[1])[None, :] <= last[:, None]
+        margins.append(np.where(run, out['margin'][:m], np.inf).min(axis=1))
         tc_preds.append(out['tc_pred'][:m])
         tc_trues.append(ds.tc[idx])
         z_norms.append(out['z_norm'][:m])
@@ -219,6 +228,7 @@ def evaluate_autoregressive(
         'n_evaluated': int(len(ar_exact)),
         'error_records': errors,
         'per_sample_ar_exact': ar_exact,
+        'per_sample_margin': np.concatenate(margins),
         'sample_indices': sample_indices[:len(ar_exact)],
         'position_errors': np.concatenate(pos_errors),
         'position_mask': np.concatenate(pos_masks),

@@ -1,12 +1,17 @@
-"""Host-side controllers that feed the RL branch of the train step (port
-of the RL parts of training/schedulers.py).
+"""Host-side training controllers (port of training/schedulers.py).
 
-Plain Python on per-epoch metric floats: the RL temperature schedule, the
-plateau detector, ``RLController`` (auto-reactivation, warmup ramp,
-auto-scale, safety guard: ``dyn['rl_w']`` and ``dyn['rl_temperature']``),
-``EntropyManager`` (``dyn['entropy_weight']``) and
-``PerPositionEntropyWeighter`` (``dyn['entropy_pos_w']``).  The other
-controllers of that file come with the host loop.
+Plain Python on per-epoch metric floats, feeding the train step's ``dyn``
+scalars or acting on the models between epochs: the curriculum ramp of
+the Tc and Magpie weights, the adaptive teacher-forcing ratio (logged),
+the cosine learning rate, the RL temperature schedule, the plateau
+detector, ``RLController`` (``dyn['rl_w']``, ``dyn['rl_temperature']``),
+``PhysZController`` (``dyn['physz_w']``), ``LossSkipScheduler`` (the
+``m_*`` multipliers), ``DropDetector`` (rollback and learning-rate
+halving), ``EntropyManager`` (``dyn['entropy_weight']``),
+``PerPositionEntropyWeighter`` (``dyn['entropy_pos_w']``) and
+``TcBinTracker``, which snapshots and restores the encoder's Tc head.
+Each stateful controller has ``state_dict`` / ``load_state_dict``, which
+the host loop's checkpoints carry.
 """
 
 from __future__ import annotations
@@ -16,8 +21,42 @@ from collections import deque
 from typing import Dict, Optional
 
 import numpy as np
+import torch
+from torch import nn
 
 from .config import TrainConfig
+
+
+# ---------------------------------------------------------------------------
+# simple functional schedules
+# ---------------------------------------------------------------------------
+
+def curriculum_weights(epoch: int, cfg: TrainConfig):
+    """Phase-1 ramp of the Tc and Magpie weights (reference: :1317-1339)."""
+    end = cfg.curriculum_phase1_end
+    if epoch < end:
+        p = epoch / end
+        return 5.0 + (cfg.tc_weight - 5.0) * p, 1.0 + (cfg.magpie_weight - 1.0) * p
+    return cfg.tc_weight, cfg.magpie_weight
+
+
+def teacher_forcing_ratio(exact_match: float, cfg: TrainConfig) -> float:
+    """Adaptive TF (reference: :1342-1376); locked at 1.0 by default."""
+    if cfg.tf_locked or exact_match < cfg.tf_onset:
+        return 1.0
+    p = (exact_match - cfg.tf_onset) / (1.0 - cfg.tf_onset)
+    return max(cfg.tf_floor, 1.0 - (1.0 - cfg.tf_floor) * p)
+
+
+def cosine_lr(epoch: int, cfg: TrainConfig) -> float:
+    """Warmup + plain cosine over num_epochs, floored at lr*min_factor."""
+    lr = cfg.learning_rate
+    if cfg.lr_warmup_epochs > 0 and epoch < cfg.lr_warmup_epochs:
+        return lr * (epoch + 1) / cfg.lr_warmup_epochs
+    t = min(max(epoch - cfg.lr_warmup_epochs, 0),
+            cfg.num_epochs) / max(cfg.num_epochs, 1)
+    floor = lr * cfg.lr_min_factor
+    return floor + 0.5 * (lr - floor) * (1 + math.cos(math.pi * t))
 
 
 def rl_temperature(epochs_since_rl_start: int, cfg: TrainConfig) -> float:
@@ -135,6 +174,158 @@ class RLController:
         self._plateau.history = deque(s['plateau_history'],
                                       maxlen=self._plateau.window)
         self._last_safety_exact = s['last_safety_exact']
+
+
+class PhysZController:
+    """Physics-Z auto-reactivation + regression guard
+    (reference: :860-883)."""
+
+    def __init__(self, cfg: TrainConfig):
+        self.cfg = cfg
+        self.active = False
+        self.weight = 0.0
+        self.activation_epoch: Optional[int] = None
+        self.activation_exact: Optional[float] = None
+        self.paused = False
+        self._plateau = PlateauDetector(
+            cfg.physics_z_reactivation_window,
+            cfg.physics_z_reactivation_plateau_threshold)
+
+    def epoch_update(self, epoch: int, tf_exact: float) -> float:
+        cfg = self.cfg
+        if not cfg.use_physics_z:
+            return 0.0
+        plateaued = self._plateau.update(tf_exact)
+
+        if not self.active and cfg.physics_z_auto_reactivate:
+            ready = (tf_exact >= cfg.physics_z_reactivation_min_exact and plateaued)
+            forced = tf_exact >= cfg.physics_z_reactivation_force_exact
+            if ready or forced:
+                self.active = True
+                self.paused = False
+                self.activation_epoch = epoch
+                self.activation_exact = tf_exact
+                self.weight = cfg.physics_z_weight
+
+        if not self.active or self.paused:
+            return 0.0
+
+        w = self.weight
+        # warmup ramp
+        since = epoch - (self.activation_epoch or epoch)
+        if since < cfg.physics_z_warmup_epochs:
+            w = w * (since + 1) / cfg.physics_z_warmup_epochs
+        # regression guard
+        if (epoch % cfg.physics_z_regression_check_interval == 0
+                and self.activation_exact is not None
+                and tf_exact < self.activation_exact - cfg.physics_z_regression_threshold):
+            self.weight *= 0.5
+            if self.weight < cfg.physics_z_weight_floor:
+                self.paused = True
+                return 0.0
+            w = min(w, self.weight)
+        elif (self.activation_exact is not None
+              and tf_exact >= self.activation_exact):
+            self.weight = cfg.physics_z_weight  # full recovery
+        return w
+
+    def state_dict(self) -> Dict:
+        return {'active': self.active, 'weight': self.weight,
+                'activation_epoch': self.activation_epoch,
+                'activation_exact': self.activation_exact,
+                'paused': self.paused,
+                'plateau_history': list(self._plateau.history)}
+
+    def load_state_dict(self, s: Dict) -> None:
+        self.active = s['active']
+        self.weight = s['weight']
+        self.activation_epoch = s['activation_epoch']
+        self.activation_exact = s['activation_exact']
+        self.paused = s['paused']
+        self._plateau.history = deque(s['plateau_history'],
+                                      maxlen=self._plateau.window)
+
+
+class LossSkipScheduler:
+    """Smart loss skipping: converged losses computed only every N epochs,
+    resumed on spikes (reference: :607-636).  Returns 0/1 multipliers for
+    ``dyn``: skipping zeroes a term's gradient."""
+
+    def __init__(self, cfg: TrainConfig):
+        self.cfg = cfg
+        self.schedule = {name: (thr, spike)
+                         for name, thr, spike in cfg.loss_skip_schedule}
+        self.converged: Dict[str, float] = {}   # name -> baseline at convergence
+
+    def multipliers(self, epoch: int,
+                    last_metrics: Optional[Dict[str, float]]) -> Dict[str, float]:
+        out = {}
+        for name, (thr, spike) in self.schedule.items():
+            key = f'm_{name.replace("_loss", "")}'
+            if not self.cfg.loss_skip_enabled or last_metrics is None:
+                out[key] = 1.0
+                continue
+            val = last_metrics.get(name)
+            if val is None:
+                out[key] = 1.0
+                continue
+            check_epoch = epoch % self.cfg.loss_skip_frequency == 0
+            if name in self.converged:
+                if check_epoch:
+                    out[key] = 1.0
+                    if val > self.converged[name] + spike:
+                        del self.converged[name]  # spiked: resume
+                else:
+                    out[key] = 0.0
+            else:
+                out[key] = 1.0
+                if val < thr:
+                    self.converged[name] = val
+        return out
+
+    def state_dict(self) -> Dict:
+        return {'converged': dict(self.converged)}
+
+    def load_state_dict(self, s: Dict) -> None:
+        self.converged = dict(s['converged'])
+
+
+class DropDetector:
+    """Catastrophic-drop rollback: restore best params + halve LR, capped
+    (reference: epoch loop + :6790)."""
+
+    def __init__(self, cfg: TrainConfig):
+        self.cfg = cfg
+        self.prev_exact: Optional[float] = None
+        self.rollbacks = 0
+        self.grace_until = 0
+        self.lr_scale = 1.0
+
+    def check(self, epoch: int, exact: float) -> bool:
+        """True -> caller must roll back to the best checkpoint."""
+        if self.cfg.disable_drop_detection or epoch < self.grace_until:
+            self.prev_exact = max(self.prev_exact or 0.0, exact)
+            return False
+        triggered = (self.prev_exact is not None
+                     and exact < self.prev_exact - self.cfg.drop_threshold
+                     and self.rollbacks < self.cfg.max_rollbacks)
+        if triggered:
+            self.rollbacks += 1
+            self.lr_scale *= 0.5
+            self.grace_until = epoch + self.cfg.rollback_grace_epochs
+        else:
+            self.prev_exact = max(self.prev_exact or 0.0, exact)
+        return triggered
+
+    def state_dict(self) -> Dict:
+        return {'prev_exact': self.prev_exact, 'rollbacks': self.rollbacks,
+                'grace_until': self.grace_until, 'lr_scale': self.lr_scale}
+
+    def load_state_dict(self, s: Dict) -> None:
+        self.prev_exact = s['prev_exact']
+        self.rollbacks = s['rollbacks']
+        self.grace_until = s['grace_until']
+        self.lr_scale = s['lr_scale']
 
 
 class EntropyManager:
@@ -269,3 +460,47 @@ class PerPositionEntropyWeighter:
 
     def load_state_dict(self, s: Dict) -> None:
         self.error_rates = np.asarray(s['error_rates'])
+
+
+class TcBinTracker:
+    """Snapshot/restore of the Tc head on high-Tc-bin R² regression
+    (reference: :3365-3497 TcBinTracker).  Acts on the encoder's
+    ``tc_proj``, ``tc_res_block``, ``tc_out_ln``, ``tc_out_1`` and
+    ``tc_out_2`` submodules: the snapshot is a host copy of their
+    ``state_dict``s, restored in place with ``load_state_dict``.  Its
+    ``state_dict`` holds tensors, so a checkpoint keeps it in the payload,
+    not in ``meta.json``."""
+
+    TC_KEYS = ('tc_proj', 'tc_res_block', 'tc_out_ln', 'tc_out_1', 'tc_out_2')
+
+    def __init__(self, cfg: TrainConfig):
+        self.cfg = cfg
+        self.best_r2: Optional[float] = None
+        self.snapshot: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+
+    def _tc_subtree(self, encoder: nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
+        return {k: {n: t.detach().cpu().clone() for n, t in getattr(encoder, k).state_dict().items()}
+                for k in self.TC_KEYS if hasattr(encoder, k)}
+
+    def update(self, encoder: nn.Module, combined_r2: float) -> bool:
+        """Snapshots the Tc head on a new best R², restores it in place on a
+        regression past the threshold; returns whether it restored."""
+        if not self.cfg.tc_bin_tracker_enabled:
+            return False
+        if self.best_r2 is None or combined_r2 > self.best_r2:
+            self.best_r2 = combined_r2
+            self.snapshot = self._tc_subtree(encoder)
+            return False
+        if (self.snapshot is not None
+                and combined_r2 < self.best_r2 - self.cfg.tc_bin_regression_threshold):
+            for k, sd in self.snapshot.items():
+                getattr(encoder, k).load_state_dict(sd)
+            return True
+        return False
+
+    def state_dict(self) -> Dict:
+        return {'best_r2': self.best_r2, 'snapshot': self.snapshot}
+
+    def load_state_dict(self, s: Dict) -> None:
+        self.best_r2 = s['best_r2']
+        self.snapshot = s['snapshot']

@@ -9,7 +9,11 @@ physics-Z loss through the learnable Magpie projection, the 17-term
 backward, and a separate global-norm clip and AdamW update for each of
 three parameter groups: the encoder, the decoder and the physics-Z
 projection, as the JAX step runs ``tx_enc``, ``tx_dec`` and a second
-``tx_enc`` state.
+``tx_enc`` state.  With ``accumulation_steps`` k > 1 each group's
+optimizer is a ``MultiSteps`` (``optax.MultiSteps``): the clip and AdamW
+run every k-th step on the mean of the k gradients.
+``make_epoch_runner`` runs the step over an epoch's batches gathered on
+the device, keeping the metric sums there.
 
 ``TrainConfig.compute_dtype`` is the models' compute dtype, as the JAX
 loop passes it to ``create_train_state``: with 'bfloat16' the models
@@ -110,28 +114,84 @@ def check_supported(tcfg: TrainConfig) -> None:
     if tcfg.soft_token_enabled:
         missing.append('soft_token_enabled (soft-token sampling: the '
                        'decoding-variants slice)')
-    if tcfg.accumulation_steps > 1:
-        missing.append('accumulation_steps > 1 (gradient accumulation: the '
-                       'host-loop slice)')
     if missing:
         raise NotImplementedError('train step: not ported yet: ' + '; '.join(missing))
 
 
-def make_optimizer(tcfg: TrainConfig, params) -> torch.optim.AdamW:
+class MultiSteps:
+    """``optax.MultiSteps`` around a torch AdamW: gradient accumulation over
+    ``every_k`` mini-steps.  ``accumulate`` keeps the running mean of the
+    gradients of mini-steps 0..i as optax updates it,
+    ``acc + (g - acc) / (i + 1)`` (Welford's form of
+    ``(g + i * acc) / (i + 1)``); on the k-th it writes the mean into the
+    gradients and returns True, and the caller clips them and steps the
+    inner AdamW, whose count therefore counts applied updates.  Its state
+    (the inner AdamW's, the mini-step, the accumulators) is one
+    ``state_dict``."""
+
+    def __init__(self, inner: torch.optim.AdamW, every_k: int):
+        self.inner, self.every_k = inner, every_k
+        self.mini_step = 0
+        self.acc_grads = [torch.zeros_like(p) for g in inner.param_groups
+                          for p in g['params']]
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    @property
+    def state(self):
+        return self.inner.state
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    def step(self) -> None:
+        self.inner.step()
+
+    def accumulate(self, grads: List[torch.Tensor]) -> bool:
+        """Folds ``grads`` into the running mean; on the k-th mini-step
+        copies the mean into ``grads``, resets, and returns True."""
+        i = self.mini_step
+        delta = torch._foreach_sub(grads, self.acc_grads)
+        torch._foreach_div_(delta, float(i + 1))
+        torch._foreach_add_(self.acc_grads, delta)
+        if i + 1 < self.every_k:
+            self.mini_step = i + 1
+            return False
+        torch._foreach_copy_(grads, self.acc_grads)
+        torch._foreach_zero_(self.acc_grads)
+        self.mini_step = 0
+        return True
+
+    def state_dict(self) -> Dict:
+        return {'inner': self.inner.state_dict(), 'mini_step': self.mini_step,
+                'acc_grads': [a.clone() for a in self.acc_grads]}
+
+    def load_state_dict(self, sd: Mapping) -> None:
+        self.inner.load_state_dict(sd['inner'])
+        self.mini_step = int(sd['mini_step'])
+        for a, saved in zip(self.acc_grads, sd['acc_grads'], strict=True):
+            a.copy_(saved)
+
+
+def make_optimizer(tcfg: TrainConfig, params):
     """AdamW as ``optax.adamw`` runs it: betas (0.9, 0.999), eps 1e-8
     outside the square root, bias correction from step 1, weight decay
-    decoupled and applied to every parameter.  The global-norm clip that
-    the JAX chain puts in front is ``clip_by_global_norm_``, called by the
-    step; the learning rate is set with ``set_learning_rate``."""
+    decoupled and applied to every parameter; wrapped in ``MultiSteps``
+    when ``accumulation_steps`` > 1.  The global-norm clip that the JAX
+    chain puts in front is ``clip_by_global_norm_``, called by the step;
+    the learning rate is set with ``set_learning_rate``."""
+    opt = torch.optim.AdamW(params, lr=tcfg.learning_rate, betas=ADAM_BETAS,
+                            eps=ADAM_EPS, weight_decay=tcfg.weight_decay)
     if tcfg.accumulation_steps > 1:
-        check_supported(tcfg)
-    return torch.optim.AdamW(params, lr=tcfg.learning_rate, betas=ADAM_BETAS,
-                             eps=ADAM_EPS, weight_decay=tcfg.weight_decay)
+        return MultiSteps(opt, tcfg.accumulation_steps)
+    return opt
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float):
-    """Sets the learning rate of every parameter group; returns the
-    optimizer."""
+    """Sets the learning rate of every parameter group (the inner AdamW's
+    of a ``MultiSteps``); returns the optimizer."""
     for group in optimizer.param_groups:
         group['lr'] = lr
     return optimizer
@@ -164,10 +224,10 @@ class TrainState:
     step: int
     encoder: MaterialsEncoder
     decoder: FormulaDecoder
-    enc_opt: torch.optim.AdamW
-    dec_opt: torch.optim.AdamW
+    enc_opt: torch.optim.AdamW | MultiSteps
+    dec_opt: torch.optim.AdamW | MultiSteps
     pz_proj: Optional[nn.Linear] = None
-    pz_opt: Optional[torch.optim.AdamW] = None
+    pz_opt: Optional[torch.optim.AdamW | MultiSteps] = None
 
     @classmethod
     def from_modules(cls, encoder: MaterialsEncoder, decoder: FormulaDecoder,
@@ -181,7 +241,7 @@ class TrainState:
                    pz_opt=(make_optimizer(tcfg, pz_proj.parameters())
                            if pz_proj is not None else None))
 
-    def groups(self) -> List[Tuple[List[nn.Parameter], torch.optim.AdamW]]:
+    def groups(self) -> List[Tuple[List[nn.Parameter], torch.optim.AdamW | MultiSteps]]:
         """(parameters, optimizer) of each clip-and-update group."""
         out = [(list(self.encoder.parameters()), self.enc_opt),
                (list(self.decoder.parameters()), self.dec_opt)]
@@ -297,7 +357,8 @@ def make_train_step(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
     norm of the encoder and decoder gradients before clipping.  With
     ``rl_enabled`` the step adds the SCST or RLOO loss (``tcfg.rl.method``)
     at ``dyn['rl_w']``, and its mean reward and ``reward_var`` to the
-    metrics."""
+    metrics.  ``state.step`` counts steps (mini-steps under
+    accumulation)."""
     check_supported(tcfg)
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor], seed: int,
@@ -324,8 +385,15 @@ def make_train_step(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            norms.append(clip_by_global_norm_([p.grad for p in params],
-                                              tcfg.grad_clip))
+            grads = [p.grad for p in params]
+            if isinstance(opt, MultiSteps):
+                # the metric is this mini-step's norm; the clip sees the mean
+                norms.append(global_norm(grads))
+                if not opt.accumulate(grads):
+                    continue
+                clip_by_global_norm_(grads, tcfg.grad_clip)
+            else:
+                norms.append(clip_by_global_norm_(grads, tcfg.grad_clip))
             opt.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -333,3 +401,36 @@ def make_train_step(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
         return state, metrics
 
     return step
+
+
+def make_epoch_runner(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
+                      rl_enabled: bool = False):
+    """Returns ``run(state, data, idx_mat, seed, dyn) -> (state, sums)``:
+    the train step over the rows ``idx_mat`` [n_batches, B] of the
+    device-resident dataset ``data`` (``ds.batch`` of every row as
+    tensors on the device), one batch a row, each gathered on the device
+    with ``index_select``.  The port of the JAX runner's ``lax.scan``: the
+    host sends the indices once, and nothing in the epoch waits for the
+    device (no ``.item()``, no copy to the host).  ``sums`` holds each
+    metric summed over the steps, as device tensors; the caller reads
+    them once."""
+    step = make_train_step(tcfg, luts, rl_enabled=rl_enabled)
+
+    def run(state: TrainState, data: Mapping[str, torch.Tensor], idx_mat, seed: int,
+            dyn: Mapping[str, float]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        device = next(iter(data.values())).device
+        idx = torch.as_tensor(np.asarray(idx_mat), dtype=torch.long)
+        if device.type == 'cuda':     # from pinned memory the copy does not wait
+            idx = idx.pin_memory()
+        idx_dev = idx.to(device, non_blocking=True)
+        sums: Dict[str, torch.Tensor] = {}
+        for idx in idx_dev:
+            batch = {k: v.index_select(0, idx) for k, v in data.items()}
+            state, metrics = step(state, batch, seed, dyn)
+            if sums:
+                torch._foreach_add_(list(sums.values()), [metrics[k] for k in sums])
+            else:
+                sums = {k: v.clone() for k, v in metrics.items()}
+        return state, sums
+
+    return run

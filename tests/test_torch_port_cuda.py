@@ -1,8 +1,9 @@
 """The kernels on the card against their plain PyTorch versions (K1, the
 decode-step attention; K2, the flash-attention forward), one train step
 on the card against the same step on the CPU, the dataset eval through
-K1 against the plain attention path, and K1's bf16 instance at the bench's
-shapes and in a bf16 greedy rollout against the plain path.
+K1 against the plain attention path, K1's bf16 instance at the bench's
+shapes and in a bf16 greedy rollout against the plain path, and train() on
+the card with K1 in its eval and RL rollouts and a checkpoint round trip.
 
 Needs an NVIDIA GPU and nvcc, and imports no JAX, so that it runs on a
 machine with the card only:
@@ -329,3 +330,91 @@ def test_bf16_greedy_rollout_through_k1_matches_plain_path(cuda):
         assert near < tie, r
     parted = int(diff.any(dim=1).sum())
     assert parted <= b // 2, parted
+
+
+def test_train_on_the_card_with_k1_and_a_checkpoint_round_trip(cuda, tmp_path, monkeypatch):
+    """train() at tiny width on the card for 2 epochs, the second an RL
+    epoch, K1 in the rollouts: K1 launched once a layer at every decode step
+    of the eval's and the RL epoch's rollouts; the last checkpoint loaded
+    back equals the returned state bit for bit."""
+    import dataclasses
+    import numpy as np
+    from superconductor_vae_tpu_torch.checkpoint import latest_checkpoint, load_checkpoint
+    from superconductor_vae_tpu_torch.data import synthetic_dataset
+    from superconductor_vae_tpu_torch.models import tiny_test_config
+    from superconductor_vae_tpu_torch.ops import rl
+    from superconductor_vae_tpu_torch.ops.rl import RLConfig
+    from superconductor_vae_tpu_torch.tokenizer import EOS_ID
+    from superconductor_vae_tpu_torch.training import TrainConfig, evaluate, train
+
+    steps = []
+
+    def recording(fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            is_eos = out['tokens'] == EOS_ID
+            steps.append(out['tokens'].shape[1] if not bool(is_eos.any(dim=1).all())
+                         else int(is_eos.int().argmax(dim=1).max()) + 1)
+            return out
+        return call
+    monkeypatch.setattr(evaluate, 'generate_with_kv_cache',
+                        recording(evaluate.generate_with_kv_cache))
+    monkeypatch.setattr(rl, '_rollout', recording(rl._rollout))
+    cfg = dataclasses.replace(tiny_test_config(), pallas_decode=True)
+    tc = TrainConfig(num_epochs=2, batch_size=16, max_formula_len=cfg.max_len,
+                     use_physics_z=False, hungarian_enabled=False, use_round_trip=False,
+                     eval_interval=1, eval_max_batches=2, checkpoint_interval=2,
+                     rl_reactivation_min_exact=0.0, rl_reactivation_window=2,
+                     rl_reactivation_force_exact=1.0, rl_min_ar_exact=0.0,
+                     rl=RLConfig(max_len=cfg.max_len))
+    before = decode_step_attention.launches
+    out = train(model_config=cfg, train_config=tc,
+                dataset=synthetic_dataset(n=64, max_len=cfg.max_len, magpie_dim=cfg.magpie_dim),
+                output_dir=tmp_path, log_fn=lambda *a: None)
+    launched = decode_step_attention.launches - before
+    assert [r['rl_weight'] > 0 for r in out['history']] == [False, True]
+    assert len(steps) == 2 + 2 + 4          # eval batches of both epochs, RL steps
+    assert launched == cfg.num_layers * sum(steps) > 0
+    assert next(out['encoder'].parameters()).device.type == 'cuda'
+    restored, meta = load_checkpoint(latest_checkpoint(tmp_path / 'checkpoints'))
+    assert meta['epoch'] == 1 and restored['step'] == out['state'].step == 8
+    for key, module in (('enc_params', out['encoder']), ('dec_params', out['decoder'])):
+        for name, v in module.state_dict().items():
+            assert torch.equal(restored[key][name], v.cpu()), (key, name)
+    opt = out['state'].enc_opt.state_dict()['state']
+    for i, s in opt.items():
+        for k, v in s.items():
+            assert torch.equal(restored['enc_opt']['state'][i][k], v.cpu()), (i, k)
+    assert np.isfinite([r['total'] for r in out['history']]).all()
+
+
+def test_epoch_runner_makes_the_host_wait_nowhere(cuda):
+    """A teacher-forced epoch of make_epoch_runner at tiny width runs under
+    ``torch.cuda.set_sync_debug_mode('error')``: no operation in it makes
+    the host wait for the card (a scalar copied from the host would); the
+    read of its sums does, which shows that the mode is on."""
+    import numpy as np
+    from superconductor_vae_tpu_torch.data import synthetic_dataset
+    from superconductor_vae_tpu_torch.models import tiny_test_config
+    from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
+    from superconductor_vae_tpu_torch.training import (
+        TrainConfig, build_luts, create_train_state, default_dyn, make_epoch_runner)
+    from superconductor_vae_tpu_torch.training.evaluate import _to_device
+    cfg = tiny_test_config()
+    tc = TrainConfig(batch_size=16, max_formula_len=cfg.max_len, use_physics_z=False,
+                     hungarian_enabled=False, use_round_trip=False)
+    ds = synthetic_dataset(n=48, max_len=cfg.max_len, magpie_dim=cfg.magpie_dim)
+    data = _to_device(ds.batch(np.arange(len(ds))), 'cuda')
+    run = make_epoch_runner(tc, build_luts(default_tokenizer(max_len=cfg.max_len), 'cuda'))
+    state = create_train_state(cfg, tc, seed=0, device='cuda')
+    idx = np.arange(48).reshape(3, 16)
+    state, _ = run(state, data, idx[:1], 0, default_dyn(tc))        # first use
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        state, sums = run(state, data, idx, 1, default_dyn(tc))
+        with pytest.raises(RuntimeError, match='synchronizing'):
+            sums['total'].cpu()
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert torch.isfinite(sums['total']).item()

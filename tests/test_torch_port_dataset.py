@@ -253,8 +253,6 @@ def test_ckpt_skew_transform_on_committed_metas():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match='A.16'):
         pipeline.load_dataset(CSV, magpie_bridge=ROOT / 'data/magpie_bridge.npz')
-    with pytest.raises(NotImplementedError, match='A.11'):
-        pipeline.load_dataset(CSV, order_augment=2)
     cfg = tiny_test_config()
     enc, dec = port_models(cfg, param_trees(cfg))
     with pytest.raises(NotImplementedError, match='A.13'):

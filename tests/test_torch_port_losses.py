@@ -166,15 +166,6 @@ def test_multitask_loss_matches_jax(name):
                        rtol=2e-5, atol=1e-7)
 
 
-def test_multitask_loss_refuses_supcon():
-    batch, enc_out, dec_out = _batch_and_outputs(seed=0)
-    batch['label'] = np.zeros(B, np.int32)
-    with pytest.raises(NotImplementedError, match='aux_losses'):
-        losses.multitask_loss(losses.LossConfig(supcon_weight=0.1), _torch(enc_out),
-                              _torch(dec_out), _torch(batch),
-                              torch.as_tensor(TOK.token_type_table))
-
-
 def test_semantic_unit_loss_matches_jax():
     rng = np.random.default_rng(7)
     targets = _tokens(rng, B)[:, 1:]

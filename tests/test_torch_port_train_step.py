@@ -356,8 +356,7 @@ def test_train_config_mirrors_jax():
 
 
 @pytest.mark.parametrize('option', [
-    dict(hungarian_enabled=True), dict(use_round_trip=True), dict(soft_token_enabled=True),
-    dict(accumulation_steps=2)])
+    dict(hungarian_enabled=True), dict(use_round_trip=True), dict(soft_token_enabled=True)])
 def test_unported_options_raise(option):
     tc = TrainConfig(**TCFG)
     luts = build_luts(default_tokenizer(max_len=16), 'cpu')
