@@ -63,6 +63,26 @@
    parameters changed, no K1 or K2 launch; one step under the profiler;
    one step of 8 rows with dropout off on the card and on the CPU from the
    same weights, whose metrics, AdamW moments and updates must agree.
+   This step runs without the set decoder and the round-trip loss.
+8b. Defaults phase: the train step at TrainConfig()'s defaults (the set
+   decoder with its on-device Hungarian matching; the A5 round trip, whose
+   greedy rollout of a tenth of the batch, 25 rows, runs 29 steps through
+   K1) at run4's widths, float32, batch 256, dropout 0.1.  (c) K1 against
+   its plain version at the round trip's shapes (B=25 and 51, T=30, every
+   position, both dtypes, caches equal) and timed there beside the plain
+   version, SDPA and the bound; K1 launched 12 x 29 = 348 times a step,
+   counted over the timed default steps; the default step and the step
+   without the two options timed in turns (samples/s), each one's launches
+   and busy share under the profiler, the parts of a default step (the
+   rollout's share, the round trip, the set decoder's forward, the
+   Hungarian loss), the set decoder's forward and backward and the DP
+   alone; (d) an epoch of make_epoch_runner at the defaults makes the host
+   wait for the card at no operation, and its read does; (b) one default
+   step of 32 rows (a round trip of 3) on the card and on the CPU from the
+   same weights, dropout off in every model: metrics 1e-4, the four groups'
+   AdamW moments and updates as the train phase holds them, the round
+   trip's tokens equal except at near-ties, the Hungarian permutations equal
+   except between assignments whose costs lie within 1e-5.
 9. RL phase: the RL train step (training/train_step.py, rl_enabled) at
    run4's widths with weights from a seed, float32, dropout 0.1, K1 in
    the rollouts, bench.py's RL TrainConfig (rl.max_len = max_len, rl_w 1)
@@ -86,7 +106,9 @@
    bytes bound, averaged over positions 0..28.
 11. Bench phase: the port's bench (superconductor_vae_tpu_torch/bench.py)
    at ModelConfig() (magpie_dim 145, run4's other widths) in bf16 compute
-   with float32 parameters, batch 512, K1 in the rollouts, on its
+   with float32 parameters, batch 512, bench.py's TrainConfig (the set
+   decoder and the round trip on: a 51-row rollout through K1 in every
+   train and RL step), K1 in the rollouts, on its
    synthetic data: its train probe (5 steps here, 20 standalone), RL probe
    (SCST, rl_w 1; 1 warm + 1 timed chunk of 8 steps here, 1 + 3
    standalone) and gen probe (greedy with bench.py's gates and early exit,
@@ -96,7 +118,8 @@
    bf16 train step and one SCST step under the profiler.  Checks (a) the
    pre-boundary logits and the KV caches bf16, parameters and AdamW
    moments float32, losses finite, and K1's bf16 instance launched 12
-   times a decode step of every probe rollout and nothing else; (c) a
+   times a decode step of every probe rollout (the round trips' included)
+   and nothing else; (c) a
    29-step greedy rollout of 512 rows through K1 against the plain decode
    path: the two paths' logits over K1's stream within half of TIE_BF16,
    the streams equal except where the top two logits were within TIE_BF16;
@@ -105,17 +128,18 @@
    CPU's own bf16-vs-float32 difference; the updates printed beside them.
 12. Loop phase: training/train_loop.py train(), the system's training
    entry point, at run4's architecture (ModelConfig() at the corpus's
-   magpie_dim 78) in float32 with K1 in the rollouts, on the first 4,096
-   rows of the loaded corpus, batch 256, without the set decoder and the
-   round-trip loss, an eval of 2 batches every epoch and a checkpoint every
-   2: 4 epochs (epoch 1 an SCST epoch, activated by the RL controller's
+   magpie_dim 78) in float32 with K1 in the rollouts, on the first 2,048
+   rows of the loaded corpus, batch 256, at TrainConfig()'s defaults (the
+   set decoder and the round trip on), an eval of 2 batches every epoch and
+   a checkpoint every 2: 4 epochs (epoch 1 an SCST epoch, activated by the RL controller's
    plateau rule; the others teacher-forced through make_epoch_runner),
    then a second call with resume='auto' for one more.  Checks (a) the
    epochs' rows, finite losses, one metrics-CSV row an epoch across both
    calls, each epoch's samples/s printed beside the train phase's
-   step-alone rate; (b) K1 launched 12 times a decode step of every eval
-   and RL rollout; (c) load_checkpoint gives back the saved parameters,
-   AdamW moments, step counts and controllers bit for bit, each save's
+   step-alone rate; (b) K1 launched 12 times a decode step of every eval,
+   RL and round-trip rollout; (c) load_checkpoint gives back the saved
+   parameters (the set decoder's included), AdamW moments, step counts and
+   controllers bit for bit, each save's
    seconds and size printed, and the resume starts at the saved epoch + 1;
    (d) one accumulated update (k=2) of 8 rows on the card against the CPU
    (metrics 1e-4 relative, moments 1e-3; 2 of the 12 layers), and its
@@ -369,6 +393,38 @@ def k1_sets(torch, gen, b, h, t, dh, dtype):
     per_set = 2 * b * h * t * dh * torch.empty((), dtype=dtype).element_size()
     return [k1_inputs(torch, gen, b, h, t, dh, dtype)
             for _ in range(max(2, -(-int(L2_COLD_BYTES) // per_set)))]
+
+
+def k1_position_means(torch, gen, b, h, t, dh, dtype, phase):
+    """K1's device time at every position 0..t-2 (a rollout's decode
+    steps) beside its plain version's, SDPA's over the same masked cache
+    and the bound's; prints and returns the means (kernels-line keys)."""
+    import torch.nn.functional as F
+    from superconductor_vae_tpu_torch.ops.decode_attention import (
+        decode_step_attention, decode_step_attention_ref)
+    sets = k1_sets(torch, gen, b, h, t, dh, dtype)
+    itemsize = sets[0][0].element_size()
+    kern, plain, lib, bound, by = [], [], [], [], set()
+    for p in range(t - 1):
+        keep = (torch.arange(t, device=gen.device) <= p)[None, :]
+        kern.append(device_ms(torch, lambda *a: decode_step_attention(*a, p), sets)[0])
+        plain.append(device_ms(torch, lambda *a: decode_step_attention_ref(*a, p), sets)[0])
+        lib.append(device_ms(torch, lambda q, kn, vn, kc, vc: F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, attn_mask=keep), sets)[0])
+        nbytes, ops = k1_bytes_ops(b, h, dh, p, itemsize)
+        bound.append(max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S) * 1e3)
+        by.add('bytes' if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOP_PER_S else 'operations')
+    mean = {k: sum(v) / len(v) for k, v in
+            (('ms', kern), ('plain_ms', plain), ('library_ms', lib), ('bound_ms', bound))}
+    name = str(dtype).split('.')[1]
+    check(len(by) == 1, f'{phase}: K1 {name} B={b} bound by {by} over the positions')
+    bound_by = by.pop()
+    print(f'{phase}: K1 time {name} B={b} T={t} pos 0..{t - 2} mean: kernel '
+          f'{mean["ms"] * 1e3:.2f} us, plain {mean["plain_ms"] * 1e3:.2f} us, sdpa '
+          f'{mean["library_ms"] * 1e3:.2f} us, {bound_by} bound {mean["bound_ms"] * 1e3:.2f} us '
+          f'(kernel / bound {mean["ms"] / mean["bound_ms"]:.2f}); kernel by position '
+          + ' '.join(f'{x * 1e3:.1f}' for x in kern))
+    return dict(mean, bound_by=bound_by)
 
 
 def kernel_phase(torch, dev):
@@ -1009,15 +1065,30 @@ def _tree_check(phase, got, want, what):
 
 
 def _group_tensors(state):
-    """{group: {name: (param, exp_avg)}} of the three update groups."""
+    """{group: {name: (param, exp_avg)}} of the update groups (the set
+    decoder's where the state has one)."""
     out = {}
     for name, module, opt in (('encoder', state.encoder, state.enc_opt),
                               ('decoder', state.decoder, state.dec_opt),
-                              ('projection', state.pz_proj, state.pz_opt)):
+                              ('projection', state.pz_proj, state.pz_opt),
+                              ('set decoder', state.set_decoder, state.set_opt)):
+        if module is None:
+            continue
         out[name] = {n: (p.detach().clone(), opt.state[p]['exp_avg'].clone()
                          if p in opt.state else None)
                      for n, p in module.named_parameters()}
     return out
+
+
+def no_set_dropout(state):
+    """The set decoder's own dropout (0.1, whatever the model config says)
+    off, for a card-against-CPU step; returns the state."""
+    from superconductor_vae_tpu_torch.models import SetDecoderLayer
+    if state.set_decoder is not None:
+        for m in state.set_decoder.modules():
+            if isinstance(m, SetDecoderLayer):
+                m.dropout = 0.0
+    return state
 
 
 def check_metrics(phase, got, want, what):
@@ -1151,6 +1222,238 @@ def train_phase(torch, dev, batches):
     check_metrics('train', m_c, m_h, 'step metrics')
     check_updates(torch, 'train', before_c, after_c, before_h, after_h, tcfg.learning_rate)
     return samples_per_s, peak
+
+
+# -- defaults phase -------------------------------------------------------------
+
+N_DEFAULT_STEPS = 4               # timed steps of each configuration, in turns
+N_DEFAULT_CPU_ROWS = 32           # card against CPU: a round trip of 3 rows
+RT_B = (25, 51)                   # the round trip's rows at batch 256 (this phase), 512 (bench)
+HUNGARIAN_TIE = 1e-5              # assignments whose costs lie this close may swap
+
+
+def defaults_phase(torch, dev, batches):
+    """The train step at TrainConfig()'s defaults (the set decoder with its
+    Hungarian matching, the A5 round trip whose greedy rollout of 25 rows
+    runs through K1) at run4's widths, float32, batch 256, dropout 0.1:
+    (c) K1 against its plain version at the round trip's shapes (B=25 and
+    51, T=30, every position, both dtypes; caches equal) and timed there;
+    then one step with K1 counted (12 layers x 29 steps), steps of the
+    defaults and of the step without the two options timed in turns, each
+    step's launches and busy share under the profiler, the parts of a
+    default step (host clock), and the set decoder's forward and backward
+    and the Hungarian DP alone; (d) an epoch of make_epoch_runner at the
+    defaults under the sync debug mode; (b) one step of 32 rows on the card
+    and on the CPU from the same weights, dropout off in every model.
+    Returns (K1 launches of the timed default steps, step samples/s)."""
+    import math
+    import numpy as np
+    import superconductor_vae_tpu_torch.training.train_step as ts_mod
+    from superconductor_vae_tpu_torch.models import SetFormulaDecoder, config_from_meta
+    from superconductor_vae_tpu_torch.ops import hungarian, round_trip
+    from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+    from superconductor_vae_tpu_torch.ops.fused_attention import flash_attention
+    from superconductor_vae_tpu_torch.tokenizer import EOS_ID, default_tokenizer
+    from superconductor_vae_tpu_torch.training import (
+        TrainConfig, build_luts, create_train_state, default_dyn, make_epoch_runner,
+        make_train_step)
+    from superconductor_vae_tpu_torch.training.train_loop import _read_sums
+
+    # (c) K1 at the round trip's shapes
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    h, t, dh = 8, 30, 72
+    for name, dtype in (('float32', torch.float32), ('bfloat16', torch.bfloat16)):
+        for b in RT_B:
+            err = max(k1_held(torch, gen, b, h, t, dh, dtype, p) for p in range(t))
+            print(f'defaults (c): K1 check {name} B={b} T={t} Dh={dh} pos 0..{t - 1}: '
+                  f'max_abs_err {err:.3e} (tol {K1_TOL[name]}) caches_equal=True')
+    k1_rows = {b: k1_position_means(torch, gen, b, h, t, dh, dtype, 'defaults (c)')
+               for b, dtype in ((RT_B[0], torch.float32), (RT_B[1], torch.bfloat16))}
+    torch.cuda.empty_cache()
+
+    meta = json.loads(META.read_text())
+    cfg = config_from_meta(meta['model_config'], pallas_decode=True)
+    tcfg = TrainConfig(batch_size=BATCH)
+    check(tcfg.hungarian_enabled and tcfg.use_round_trip and tcfg.a5_weight > 0,
+          "defaults: TrainConfig()'s defaults lost the set decoder or the round trip")
+    off = dataclasses.replace(tcfg, hungarian_enabled=False, use_round_trip=False)
+    subset = max(int(BATCH * tcfg.round_trip_subset_fraction), 1)
+    check(subset == RT_B[0], f'defaults: a round trip of {subset} rows')
+    dyn = dict(default_dyn(tcfg), physz_w=float(meta['controllers']['physz']['weight']))
+    tok = default_tokenizer(max_len=cfg.max_len)
+    luts = build_luts(tok, device=dev)
+    configs = {'defaults': tcfg, 'without': off}
+    steps = {k: make_train_step(c, luts) for k, c in configs.items()}
+    states = {k: create_train_state(cfg, c, seed=SEED, device=dev) for k, c in configs.items()}
+    n_params = {name: sum(p.numel() for p, _ in g.values())
+                for name, g in _group_tensors(states['defaults']).items()}
+    print(f'defaults: run4 widths, float32, dropout {cfg.dropout}, batch {BATCH}, K1 in the '
+          f'round trip ({subset} rows, {cfg.max_len - 1} steps); set decoder d_model '
+          f'{tcfg.hungarian_d_model}, {tcfg.hungarian_num_layers} layers, FFN '
+          f'{tcfg.hungarian_dim_feedforward}, {tcfg.hungarian_n_z_tokens} z tokens; parameters '
+          f'{n_params}')
+    for k in configs:                                                   # warm-up
+        states[k], _ = steps[k](states[k], batches[0], SEED, dyn)
+    # the main path: counts at 0 just before the timed steps, read just after
+    rates = {k: [] for k in configs}
+    torch.cuda.synchronize()
+    decode_step_attention.launches = 0
+    flash_attention.launches = 0
+    k1 = {k: 0 for k in configs}
+    vals = {}
+    for i, how in enumerate(('without', 'defaults', 'defaults', 'without')):
+        before = decode_step_attention.launches
+        t0 = time.perf_counter()
+        for j in range(N_DEFAULT_STEPS):
+            states[how], m = steps[how](states[how], batches[(i + j + 1) % len(batches)],
+                                        SEED, dyn)
+        torch.cuda.synchronize()
+        rates[how].append(N_DEFAULT_STEPS * BATCH / (time.perf_counter() - t0))
+        k1[how] += decode_step_attention.launches - before
+        vals[how] = {key: v.item() for key, v in m.items()}
+        bad = [key for key, x in vals[how].items() if not math.isfinite(x)]
+        check(not bad, f'defaults ({how}): metrics not finite: {bad}')
+    launches = decode_step_attention.launches
+    n_default = 2 * N_DEFAULT_STEPS
+    per_step = cfg.num_layers * (cfg.max_len - 1)
+    check(flash_attention.launches == 0, 'defaults: K2 was launched')
+    check(k1['without'] == 0, f'defaults: the step without the round trip launched K1 '
+          f'{k1["without"]} times')
+    check(launches == n_default * per_step,
+          f'defaults: K1 launches {launches} over {n_default} default steps != '
+          f'{n_default} x {per_step}')
+    print(f'defaults: K1 launches {launches} over {n_default} default steps = {per_step} a step '
+          f'(12 layers x {cfg.max_len - 1} decode steps); without the two options 0')
+    v = vals['defaults']
+    print(f'defaults: last default step: total {v["total"]:.4f}, a5_z_mse '
+          f'{v["a5_z_mse"]:.4f}, a5_tc_mse {v["a5_tc_mse"]:.4f}, hungarian_loss '
+          f'{v["hungarian_loss"]:.4f}, set_element_accuracy '
+          f'{v["set_element_accuracy"]:.4f}, grad_norm {v["grad_norm"]:.3f}')
+    print('defaults: train samples/s in turns (steps of ' + f'{BATCH}, {N_DEFAULT_STEPS} a '
+          'turn): ' + '; '.join(f'{how} ' + ', '.join(f'{x:.1f}' for x in v)
+                                for how, v in rates.items()))
+    st = states['defaults']
+
+    # the set decoder's forward and backward alone, and the DP alone
+    z = torch.randn(BATCH, cfg.latent_dim, device=dev, requires_grad=True)
+    b0 = batches[0]
+    fwd, bwd = [], []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = st.set_decoder(z)
+        loss = hungarian.hungarian_matching_loss(
+            out['element_logits'], out['fraction_pred'], out['presence_logits'],
+            b0['element_indices'], b0['element_fractions'], b0['element_mask'])['total']
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        fwd.append((t1 - t0) * 1e3)
+        bwd.append((time.perf_counter() - t1) * 1e3)
+    st.set_decoder.zero_grad(set_to_none=True)
+    cost = torch.rand(BATCH, 12, 12, device=dev)
+    dp_wall, dp_busy, dp_kernels = profile_counts(
+        torch, lambda: hungarian.hungarian_assignment(cost))
+    print(f'defaults: set decoder alone at B={BATCH} (host clock, after a warm-up): forward '
+          f'with the matching loss {min(fwd[1:]):.2f}-{max(fwd[1:]):.2f} ms, backward '
+          f'{min(bwd[1:]):.2f}-{max(bwd[1:]):.2f} ms; the Hungarian DP alone on [{BATCH}, 12, '
+          f'12] under the profiler: {dp_busy:.3f} ms on the device in {dp_kernels} launches, '
+          f'wall {dp_wall:.3f} ms')
+
+    # the parts of a default step, each timed with a synchronise after it;
+    # the second of two steps is printed
+    for i in range(2):
+        with Timings(torch, (round_trip, 'generate_with_kv_cache'),
+                     (ts_mod, 'round_trip_loss'), (ts_mod, 'hungarian_matching_loss'),
+                     (SetFormulaDecoder, 'forward')) as tm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = steps['defaults'](st, batches[2 + i], SEED, dyn)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+    part = {name: sum(x for x, _ in v) for name, v in tm.calls.items()}
+    print(f'defaults: parts of one default step of {BATCH} (host clock, a synchronise after '
+          f'each part; the step {step_s * 1e3:.1f} ms): the round trip\'s rollout '
+          f'{part["generate_with_kv_cache"] * 1e3:.1f} ms '
+          f'({100 * part["generate_with_kv_cache"] / step_s:.1f}% of the step), the round trip '
+          f'with its re-encoding {part["round_trip_loss"] * 1e3:.1f} ms, the set decoder\'s '
+          f'forward {part["forward"] * 1e3:.1f} ms, the Hungarian loss with its DP '
+          f'{part["hungarian_matching_loss"] * 1e3:.1f} ms')
+    states['defaults'] = st
+    for how in configs:
+        wall, busy, n_kernels = profile_counts(
+            torch, lambda: steps[how](states[how], batches[1], SEED, dyn))
+        print(f'defaults: one step ({how}) under the profiler: wall {wall:.1f} ms, device busy '
+              f'{busy:.1f} ms ({100 * busy / wall:.1f}%), {n_kernels} kernel launches')
+    del states['without']
+    torch.cuda.empty_cache()
+
+    # (d) an epoch of make_epoch_runner at the defaults makes the host wait
+    # nowhere; its one read does
+    run = make_epoch_runner(tcfg, luts)
+    data = {k: torch.cat([bt[k] for bt in batches]) for k in batches[0]}
+    idx = np.arange(2 * BATCH).reshape(2, BATCH)
+    st, _ = run(st, data, idx[:1], SEED, dyn)                           # first use
+    (st, sums), epoch_syncs = host_syncs(torch, lambda: run(st, data, idx, SEED, dyn))
+    _, read_syncs = host_syncs(torch, lambda: _read_sums(sums, len(idx)))
+    print(f'defaults (d): operations that made the host wait for the card: in an epoch of '
+          f'{len(idx)} default steps {dict(epoch_syncs)}, in the read of its sums '
+          f'{dict(read_syncs)}')
+    check(not epoch_syncs, f'defaults (d): the epoch made the host wait at {dict(epoch_syncs)}')
+    check(sum(read_syncs.values()) >= 1, 'defaults (d): the sync debug mode missed the read')
+    del st, states, steps, data, sums, z, out, loss
+    torch.cuda.empty_cache()
+
+    # (b) card against CPU: one default step of 32 rows, dropout off
+    cfg0 = dataclasses.replace(cfg, dropout=0.0)
+    tcfg0 = dataclasses.replace(tcfg, batch_size=N_DEFAULT_CPU_ROWS)
+    small = {k: v[:N_DEFAULT_CPU_ROWS] for k, v in batches[0].items()}
+    rec = {'tokens': [], 'margin': [], 'perm': [], 'cost': []}
+
+    def recorded(fn, keys):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            got = (out['tokens'], out['margin']) if keys[0] == 'tokens' else (out[0], args[0])
+            for key, v in zip(keys, got):
+                rec[key].append(v.detach().cpu())
+            return out
+        return call
+    runs = []
+    with _patched(round_trip, 'generate_with_kv_cache', recorded(
+            round_trip.generate_with_kv_cache, ('tokens', 'margin'))), \
+            _patched(hungarian, 'hungarian_assignment', recorded(
+                hungarian.hungarian_assignment, ('perm', 'cost'))):
+        for where in (dev, torch.device('cpu')):
+            st = no_set_dropout(create_train_state(cfg0, tcfg0, seed=SEED + 1, device=where))
+            before = _group_tensors(st)
+            st, m = make_train_step(tcfg0, build_luts(tok, device=where))(
+                st, {k: v.to(where) for k, v in small.items()}, SEED, dyn)
+            runs.append((m, before, _group_tensors(st)))
+            del st
+    (m_c, before_c, after_c), (m_h, before_h, after_h) = runs
+    check(len(after_h) == 4, f'defaults (b): update groups {list(after_h)}')
+    check_metrics('defaults (b)', m_c, m_h, 'default step metrics')
+    check_updates(torch, 'defaults (b)', before_c, after_c, before_h, after_h,
+                  tcfg.learning_rate)
+    (tok_c, tok_h), (mar_c, mar_h) = rec['tokens'], rec['margin']
+    check(tok_c.shape[0] == 3, f'defaults (b): a round trip of {tok_c.shape[0]} rows')
+    ties = compare_streams({'generated': tok_c, 'margin': mar_c},
+                           {'generated': tok_h, 'margin': mar_h}, EOS_ID,
+                           'defaults (b) round trip')
+    (perm_c, perm_h), cost = rec['perm'], rec['cost'][1]
+    rows = torch.arange(cost.shape[1])
+    swapped = 0
+    for r in torch.nonzero((perm_c != perm_h).any(dim=1))[:, 0].tolist():
+        a, b = cost[r, rows, perm_c[r]].sum().item(), cost[r, rows, perm_h[r]].sum().item()
+        check(abs(a - b) <= HUNGARIAN_TIE, f'defaults (b): row {r}: the card\'s assignment '
+              f'costs {a!r}, the CPU\'s {b!r}')
+        swapped += 1
+    print(f'defaults (b): the round trip\'s {tok_c.shape[0]} rollouts equal card vs CPU '
+          f'(near-tie divergences {ties}); the Hungarian permutations of {perm_c.shape[0]} rows '
+          f'equal ({swapped} swapped between assignments within {HUNGARIAN_TIE} of cost)')
+    torch.cuda.empty_cache()
+    return launches, rates, k1_rows
 
 
 # -- RL phase -----------------------------------------------------------------
@@ -1429,9 +1732,6 @@ def k1_bf16_phase(torch, dev):
     device time beside the plain version's and SDPA's, averaged over
     positions 0..28, with the mean bytes bound.  Returns the kernels-line
     numbers at B=1024 and the largest error."""
-    import torch.nn.functional as F
-    from superconductor_vae_tpu_torch.ops.decode_attention import (
-        decode_step_attention, decode_step_attention_ref)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     h, t, dh = 8, 30, 72
     worst = 0.0
@@ -1440,29 +1740,8 @@ def k1_bf16_phase(torch, dev):
         print(f'bench: K1 check bfloat16 B={b} T={t} Dh={dh} pos 0..{t - 1}: max_abs_err '
               f'{err:.3e} (tol {K1_TOL["bfloat16"]}) caches_equal=True')
         worst = max(worst, err)
-    rows = {}
-    for b in K1_BF16_B:
-        sets = k1_sets(torch, gen, b, h, t, dh, torch.bfloat16)
-        kern, plain, lib, bound, by = [], [], [], [], set()
-        for p in range(t - 1):
-            keep = (torch.arange(t, device=dev) <= p)[None, :]
-            kern.append(device_ms(torch, lambda *a: decode_step_attention(*a, p), sets)[0])
-            plain.append(device_ms(torch, lambda *a: decode_step_attention_ref(*a, p), sets)[0])
-            lib.append(device_ms(torch, lambda q, kn, vn, kc, vc: F.scaled_dot_product_attention(
-                q[:, :, None], kc, vc, attn_mask=keep), sets)[0])
-            nbytes, ops = k1_bytes_ops(b, h, dh, p, 2)
-            bound.append(max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S) * 1e3)
-            by.add('bytes' if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOP_PER_S else 'operations')
-        mean = {k: sum(v) / len(v) for k, v in
-                (('ms', kern), ('plain_ms', plain), ('library_ms', lib), ('bound_ms', bound))}
-        print(f'bench: K1 time bfloat16 B={b} T={t} pos 0..{t - 2} mean: kernel '
-              f'{mean["ms"] * 1e3:.2f} us, plain {mean["plain_ms"] * 1e3:.2f} us, sdpa '
-              f'{mean["library_ms"] * 1e3:.2f} us, bytes bound {mean["bound_ms"] * 1e3:.2f} us '
-              f'(kernel / bound {mean["ms"] / mean["bound_ms"]:.2f}); kernel by position '
-              + ' '.join(f'{x * 1e3:.1f}' for x in kern))
-        check(len(by) == 1, f'bench: K1 bf16 bound by {by} over the positions')
-        rows[b] = dict(mean, bound_by=by.pop())
-        del sets
+    rows = {b: k1_position_means(torch, gen, b, h, t, dh, torch.bfloat16, 'bench')
+            for b in K1_BF16_B}
     torch.cuda.empty_cache()
     return rows[K1_BF16_B[-1]], worst
 
@@ -1531,7 +1810,8 @@ def bench_phase(torch, dev):
             r = probe()
             torch.cuda.synchronize()
             bf16, total, k2 = read()
-            steps = r['warm_decode_steps'] + r['decode_steps']
+            steps = (r['warm_decode_steps'] + r['decode_steps']
+                     + r.get('round_trip_decode_steps', []))
             check(bf16 > 0, f'bench {name} ({heads}): K1 bf16 was not launched')
             check((bf16, total, k2) == (cfg.num_layers * sum(steps),) * 2 + (0,),
                   f'bench {name} ({heads}): K1 bf16 / all K1 / K2 launches {(bf16, total, k2)} '
@@ -1539,10 +1819,18 @@ def bench_phase(torch, dev):
             out[name] = (r, bf16)
         return out
 
+    # the train probe: K1 in every step's round trip (a rollout of a tenth
+    # of the batch, all max_len - 1 steps), warm-up included
     zero()
     train = bench.train_probe(s, steps=BENCH_TRAIN_STEPS)
     torch.cuda.synchronize()
-    check(read() == (0, 0, 0), f'bench train: K1/K2 launched {read()}')
+    rt_steps = train['round_trip_decode_steps']
+    train_k1 = read()[0]
+    check(rt_steps == [cfg.max_len - 1] * (BENCH_TRAIN_STEPS + 1),
+          f'bench train: round-trip rollouts {rt_steps}')
+    check(read() == (cfg.num_layers * sum(rt_steps),) * 2 + (0,),
+          f'bench train: K1 bf16 / all K1 / K2 launches {read()} != layers x the round '
+          f'trips\' decode steps {cfg.num_layers * sum(rt_steps)}, the same, 0')
     runs = {'random heads': paths('random heads')}
     fix_rollout_heads(torch, s.state.decoder)
     runs['heads fixed'] = paths('heads fixed')
@@ -1558,8 +1846,11 @@ def bench_phase(torch, dev):
     n = len(s.batch['tokens'])
     print(f'bench: train {BENCH_TRAIN_STEPS} steps of {n} in {train["seconds"]:.3f} s = '
           f'{train["samples_per_s"]:.1f} train samples/s; peak {train["peak_gib"]:.2f} GiB; '
-          f'total {train["metrics"]["total"]:.4f}, formula {train["metrics"]["formula_loss"]:.4f}')
-    launches = 0
+          f'total {train["metrics"]["total"]:.4f}, formula {train["metrics"]["formula_loss"]:.4f}, '
+          f'a5_z_mse {train["metrics"]["a5_z_mse"]:.4f}, hungarian_loss '
+          f'{train["metrics"]["hungarian_loss"]:.4f}; K1 bf16 launches {train_k1} (round trips '
+          f'of {max(int(n * s.tcfg.round_trip_subset_fraction), 1)} rows, warm-up included)')
+    launches = train_k1
     for heads, r in runs.items():
         rl_r, rl_k1 = r['rl']
         gen_r, gen_k1 = r['gen']
@@ -1567,7 +1858,9 @@ def bench_phase(torch, dev):
         print(f'bench: rl ({heads}): {rl_r["steps"]} SCST steps of {rl_r["rl_batch_size"]} in '
               f'{rl_r["seconds"]:.3f} s = {rl_r["samples_per_s"]:.1f} RL samples/s; peak '
               f'{rl_r["peak_gib"]:.2f} GiB; decode steps of each rollout '
-              f'{rl_r["warm_decode_steps"]} (warm) {rl_r["decode_steps"]}; K1 bf16 launches '
+              f'{rl_r["warm_decode_steps"]} (warm) {rl_r["decode_steps"]}, and '
+              f'{len(rl_r["round_trip_decode_steps"])} round trips of '
+              f'{rl_r["round_trip_decode_steps"][0]}; K1 bf16 launches '
               f'{rl_k1}; reinforce {rl_r["metrics"]["reinforce_loss"]:.4f}, mean_reward '
               f'{rl_r["metrics"]["mean_reward"]:.4f}')
         print(f'bench: gen ({heads}): {gen_r["calls"]} calls of {n} in {gen_r["seconds"]:.3f} s '
@@ -1759,7 +2052,9 @@ def bf16_step_check(torch, dev):
 
 # -- loop phase -----------------------------------------------------------------
 
-LOOP_ROWS = 4096                  # the first rows of the loaded corpus
+# the first rows of the loaded corpus: 8 steps of 256 an epoch (a default
+# step, with its round trip, takes about 0.5 s)
+LOOP_ROWS = 2048
 LOOP_EPOCHS = (4, 5)              # epochs after the first call, after the resume
 LOOP_DIR = ROOT / 'outputs' / 'chip_smoke_loop'
 
@@ -1832,16 +2127,16 @@ class Timings:
 
 
 def loop_config(cfg, **kw):
-    """The loop phase's TrainConfig: batch 256 without the set decoder and
-    the round-trip loss, an eval of 2 batches every epoch, a checkpoint
-    every 2 epochs, and RL (SCST, rl_w 1 ramped by its warm-up) activated
-    at epoch 1 by its plateau rule, every 4th epoch from there: epoch 1 is
-    the one RL epoch, the others teacher-forced."""
+    """The loop phase's TrainConfig: TrainConfig()'s defaults (the set
+    decoder and the round trip on) at batch 256, an eval of 2 batches every
+    epoch, a checkpoint every 2 epochs, and RL (SCST, rl_w 1 ramped by its
+    warm-up) activated at epoch 1 by its plateau rule, every 4th epoch from
+    there: epoch 1 is the one RL epoch, the others teacher-forced."""
     from superconductor_vae_tpu_torch.ops.rl import RLConfig
     from superconductor_vae_tpu_torch.training import TrainConfig
     return TrainConfig(**dict(
         num_epochs=LOOP_EPOCHS[0], batch_size=BATCH, max_formula_len=cfg.max_len,
-        skew_transform='rank_gauss', hungarian_enabled=False, use_round_trip=False,
+        skew_transform='rank_gauss',
         eval_interval=1, eval_max_batches=2, checkpoint_interval=2,
         rl_weight=0.0, rl_reactivation_min_exact=0.0, rl_reactivation_window=2,
         rl_reactivation_force_exact=1.0, rl_min_ar_exact=0.0, rl_epoch_interval=4,
@@ -1880,7 +2175,7 @@ def loop_phase(torch, dev, ds, step_rate):
     from superconductor_vae_tpu_torch.checkpoint import load_checkpoint
     from superconductor_vae_tpu_torch.generation.latent_analyzer import LatentSpaceAnalyzer
     from superconductor_vae_tpu_torch.models import ModelConfig, config_from_meta
-    from superconductor_vae_tpu_torch.ops import rl
+    from superconductor_vae_tpu_torch.ops import rl, round_trip
     from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
     from superconductor_vae_tpu_torch.tokenizer import EOS_ID
     from superconductor_vae_tpu_torch.training import evaluate, train, train_loop
@@ -1896,6 +2191,7 @@ def loop_phase(torch, dev, ds, step_rate):
     calls = []
     with CallLog(evaluate, 'generate_with_kv_cache') as gen_log, \
             CallLog(rl, '_rollout') as rl_log, \
+            CallLog(round_trip, 'generate_with_kv_cache') as rt_log, \
             Timings(torch, (train_loop, 'save_checkpoint'), (train_loop, 'evaluate_autoregressive'),
                     (LatentSpaceAnalyzer, 'build_cache'),
                     (TopologyAnalyzer, 'analyze')) as timings:
@@ -1931,17 +2227,22 @@ def loop_phase(torch, dev, ds, step_rate):
     print(f'loop: TF epochs after the first {tf_rates} samples/s; the train phase\'s step alone '
           f'{step_rate:.1f} samples/s in this call (epoch / step {min(tf_rates) / step_rate:.3f}'
           f'-{max(tf_rates) / step_rate:.3f})')
-    # (b) K1 at every decode step of every eval and RL rollout
+    # (b) K1 at every decode step of every eval, RL and round-trip rollout
     eval_steps = [steps_run(o['tokens'], EOS_ID) for o in gen_log.outputs]
     rl_steps = [steps_run(o['tokens'], EOS_ID) for o in rl_log.outputs]
+    rt_steps = [o['tokens'].shape[1] for o in rt_log.outputs]      # no early exit
     print(f'loop: eval rollouts {len(eval_steps)} (decode steps {eval_steps}); RL rollouts '
-          f'{len(rl_steps)} of {2 * BATCH} rows (decode steps {rl_steps}); K1 launches {launches}')
-    check(len(eval_steps) == 2 * LOOP_EPOCHS[1] and len(rl_steps) == LOOP_ROWS // BATCH,
-          'loop: eval or RL rollouts missing')
+          f'{len(rl_steps)} of {2 * BATCH} rows (decode steps {rl_steps}); round-trip rollouts '
+          f'{len(rt_steps)} of {rt_log.outputs[0]["tokens"].shape[0]} rows, '
+          f'{cfg.max_len - 1} steps each; K1 launches {launches}')
+    n_steps = LOOP_EPOCHS[1] * (LOOP_ROWS // BATCH)
+    check(len(eval_steps) == 2 * LOOP_EPOCHS[1] and len(rl_steps) == LOOP_ROWS // BATCH
+          and rt_steps == [cfg.max_len - 1] * n_steps,
+          'loop: eval, RL or round-trip rollouts missing')
     check(launches > 0, 'loop: K1 was not launched')
-    check(launches == cfg.num_layers * (sum(eval_steps) + sum(rl_steps)),
-          f'loop: K1 launches {launches} != layers x decode steps '
-          f'{cfg.num_layers * (sum(eval_steps) + sum(rl_steps))}')
+    all_steps = sum(eval_steps) + sum(rl_steps) + sum(rt_steps)
+    check(launches == cfg.num_layers * all_steps,
+          f'loop: K1 launches {launches} != layers x decode steps {cfg.num_layers * all_steps}')
     # (c) the checkpoint round trip on the card
     saves = [(path.name, secs, sum(f.stat().st_size for f in path.iterdir()))
              for secs, path in timings.calls.pop('save_checkpoint')]
@@ -1958,8 +2259,9 @@ def loop_phase(torch, dev, ds, step_rate):
     st = first['state']
     live = {'step': st.step, 'enc_params': st.encoder.state_dict(),
             'dec_params': st.decoder.state_dict(), 'pz_params': st.pz_proj.state_dict(),
+            'set_params': st.set_decoder.state_dict(),
             'enc_opt': st.enc_opt.state_dict(), 'dec_opt': st.dec_opt.state_dict(),
-            'pz_opt': st.pz_opt.state_dict()}
+            'pz_opt': st.pz_opt.state_dict(), 'set_opt': st.set_opt.state_dict()}
     for key, value in live.items():
         check(_same_tree(restored[key], value), f'loop: {key} differs after load_checkpoint')
     check(saved_meta['controllers'] == json.loads(json.dumps(first['controllers'])),
@@ -1967,8 +2269,9 @@ def loop_phase(torch, dev, ds, step_rate):
     check(resumed['history'][0]['epoch'] == saved_meta['epoch'] + 1,
           'loop: the resume did not start at the saved epoch + 1')
     print(f'loop: load_checkpoint {load_s:.2f} s: params, AdamW moments and step counts of '
-          f'the three groups, step {restored["step"]}, and the controllers equal the saved '
-          f'state bit for bit; the resume started at epoch {saved_meta["epoch"] + 1}')
+          f'the four groups (the set decoder\'s set_params and set_opt included), step '
+          f'{restored["step"]}, and the controllers equal the saved state bit for bit; the '
+          f'resume started at epoch {saved_meta["epoch"] + 1}')
     state = resumed['state']
     del first, resumed, restored, live, st
     shutil.rmtree(LOOP_DIR / 'checkpoints')
@@ -2007,7 +2310,7 @@ def accumulation_check(torch, dev, cfg):
     dyn = dict(default_dyn(tcfg), physz_w=1.0)
     runs = []
     for where in (dev, torch.device('cpu')):
-        st = create_train_state(cfg0, tcfg, seed=SEED + 4, device=where)
+        st = no_set_dropout(create_train_state(cfg0, tcfg, seed=SEED + 4, device=where))
         step = make_train_step(tcfg, build_luts(default_tokenizer(max_len=cfg.max_len),
                                                 device=where))
         before = _group_tensors(st)
@@ -2026,12 +2329,12 @@ def accumulation_check(torch, dev, cfg):
                 path = save_checkpoint(LOOP_DIR / 'accumulation', st, cfg0, tcfg, epoch=0)
                 restored, _ = load_checkpoint(path)
                 check(all(_same_tree(restored[name]['acc_grads'], a) for name, a in
-                          zip(('enc_opt', 'dec_opt', 'pz_opt'), acc)),
+                          zip(('enc_opt', 'dec_opt', 'pz_opt', 'set_opt'), acc)),
                       'loop (d): the accumulators differ after load_checkpoint')
                 check(restored['enc_opt']['mini_step'] == 1, 'loop (d): the mini-step')
                 del restored
-                print('loop (d): after the first mini-step: parameters unmoved; the '
-                      'accumulators of the three groups equal through save and load')
+                print(f'loop (d): after the first mini-step: parameters unmoved; the '
+                      f'accumulators of the {len(acc)} groups equal through save and load')
         runs.append((metrics, before, _group_tensors(st)))
         check(all(int(opt.state[p]['step']) == 1 for params, opt in st.groups()
                   for p in params), 'loop (d): AdamW did not count one update')
@@ -2137,12 +2440,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     k2_rows, k2_err, k2_launches = k2_phase(torch, dev)
     step_rate, _ = train_phase(torch, dev, batches)
+    defaults_launches, _, _ = defaults_phase(torch, dev, batches)
     rl_results = rl_phase(torch, dev, batches)
     k1_bf16, k1_bf16_err = k1_bf16_phase(torch, dev)
     bench_launches, _ = bench_phase(torch, dev)
     loop_launches = loop_phase(torch, dev, ds, step_rate)
 
     k1_paths = {'eval': launches, 'eval corpus': corpus_launches,
+                'defaults (round trip)': defaults_launches,
                 'rl scst': rl_results['scst'][1], 'rl rloo': rl_results['rloo'][1],
                 'loop': loop_launches}
     launches = sum(k1_paths.values())
@@ -2150,7 +2455,7 @@ def main() -> int:
     print(f'kernels: ["K1 decode_step_attention", "K1 decode_step_attention bf16", '
           f'"K2 flash_attention", "K2 flash_attention bf16"] launches: '
           f'{{"K1 decode_step_attention": {launches} {k1_paths}, '
-          f'"K1 decode_step_attention bf16": {bench_launches} (bench probes: rl and gen), '
+          f'"K1 decode_step_attention bf16": {bench_launches} (bench probes: train, rl and gen), '
           f'"K2 flash_attention": {k2_launches[torch.float32]}, "K2 flash_attention bf16": '
           f'{k2_launches[torch.bfloat16]}}}')
     print(json.dumps({'kernels': [{

@@ -6,8 +6,9 @@
 By default it builds what bench.py builds: ``ModelConfig()`` (magpie_dim
 145, d_model 576, 12 layers, 8 heads, max_len 30) computing in bf16 on
 float32 parameters, ``TrainConfig(batch_size=512, max_formula_len=30,
-use_physics_z=True)`` without the set decoder and the round-trip loss
-(not ported yet), ``synthetic_dataset(n=512)``, with the decode step's
+use_physics_z=True)`` (so with the set decoder and the A5 round-trip
+loss, whose greedy rollout of 51 rows runs in every train and RL step),
+``synthetic_dataset(n=512)``, with the decode step's
 self-attention through the decode-step kernel (``pallas_decode``), and
 runs three probes on one train state:
 
@@ -49,7 +50,7 @@ import torch
 from .data import synthetic_dataset
 from .generation import GenerationConfig, generate_with_kv_cache
 from .models import ModelConfig, tiny_test_config
-from .ops import rl
+from .ops import rl, round_trip
 from .ops.decode_attention import decode_step_attention, decode_step_attention_ref
 from .tokenizer import EOS_ID, default_tokenizer
 from .training import (TrainConfig, build_luts, create_train_state, default_dyn,
@@ -88,11 +89,8 @@ def build(quick: bool = False, batch_size: Optional[int] = None, rl: bool = Fals
         batch_size, dtype_name = batch_size or 512, 'bfloat16'
         device = device or 'cuda'
     mcfg = dataclasses.replace(mcfg, pallas_decode=True)
-    # the set decoder and the round-trip loss, on in bench.py, are not
-    # ported yet (ROADMAP A.12, A.14): the step runs without them
     tcfg = TrainConfig(batch_size=batch_size, max_formula_len=mcfg.max_len,
-                       use_physics_z=mcfg.latent_dim >= 2048, compute_dtype=dtype_name,
-                       hungarian_enabled=False, use_round_trip=False)
+                       use_physics_z=mcfg.latent_dim >= 2048, compute_dtype=dtype_name)
     if rl:
         tcfg.rl = dataclasses.replace(tcfg.rl, max_len=mcfg.max_len)
     device = torch.device(device)
@@ -128,29 +126,42 @@ def steps_run(tokens: torch.Tensor) -> int:
 
 @contextlib.contextmanager
 def recorded_rollouts():
-    """While entered, every rollout of ops/rl.py (``_rollout``) is kept:
-    yields the list its outputs go into."""
-    original, outputs = rl._rollout, []
+    """While entered, every rollout of ops/rl.py (``_rollout``) and of the
+    round-trip loss (ops/round_trip.py) is kept: yields the two lists
+    their outputs go into, RL first."""
+    saved = (rl._rollout, round_trip.generate_with_kv_cache)
+    outputs = ([], [])
 
-    def record(*args, **kwargs):
-        out = original(*args, **kwargs)
-        outputs.append(out)
-        return out
-    rl._rollout = record
+    def recorder(fn, out_list):
+        def record(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            out_list.append(out)
+            return out
+        return record
+    rl._rollout = recorder(saved[0], outputs[0])
+    round_trip.generate_with_kv_cache = recorder(saved[1], outputs[1])
     try:
         yield outputs
     finally:
-        rl._rollout = original
+        rl._rollout, round_trip.generate_with_kv_cache = saved
+
+
+def _round_trip_steps(outputs) -> List[int]:
+    """Decode steps of each round-trip rollout: all of its stream (no early
+    exit)."""
+    return [o['tokens'].shape[1] for o in outputs]
 
 
 def train_probe(s: Setup, steps: int = 20, rl_enabled: bool = False) -> dict:
-    """One warm-up step, then ``steps`` timed steps of the batch."""
+    """One warm-up step, then ``steps`` timed steps of the batch.
+    ``round_trip_decode_steps`` counts the warm-up's rollout too."""
     step = make_train_step(s.tcfg, s.luts, rl_enabled=rl_enabled)
     dyn = default_dyn(s.tcfg)
-    s.state, m = step(s.state, s.batch, s.seed + 1, dyn)             # warm-up
-    _sync(s.device)
-    _reset_peak(s.device)
-    with recorded_rollouts() as rollouts:
+    with recorded_rollouts() as (rollouts, round_trips):
+        s.state, m = step(s.state, s.batch, s.seed + 1, dyn)         # warm-up
+        _sync(s.device)
+        _reset_peak(s.device)
+        n_warm = len(rollouts)
         t0 = time.perf_counter()
         for i in range(steps):
             s.state, m = step(s.state, s.batch, s.seed + 2 + i, dyn)
@@ -159,7 +170,8 @@ def train_probe(s: Setup, steps: int = 20, rl_enabled: bool = False) -> dict:
     n = len(s.batch['tokens'])
     return {'samples_per_s': steps * n / wall, 'seconds': wall, 'steps': steps,
             'metrics': {k: v.item() for k, v in m.items()},
-            'decode_steps': [steps_run(o['tokens']) for o in rollouts],
+            'decode_steps': [steps_run(o['tokens']) for o in rollouts[n_warm:]],
+            'round_trip_decode_steps': _round_trip_steps(round_trips),
             'peak_gib': _peak_gib(s.device)}
 
 
@@ -167,7 +179,8 @@ def rl_probe(s: Setup, rl_batch: int = 512, chunks: int = 3, warm_chunks: int = 
              chunk: int = RL_CHUNK) -> dict:
     """bench.py's RL throughput: chunks of ``chunk`` SCST train steps over
     one batch of ``rl_batch`` rows on the device, ``rl.max_len`` = max_len
-    and ``rl_w`` 1; ``warm_chunks`` untimed, then ``chunks`` timed."""
+    and ``rl_w`` 1; ``warm_chunks`` untimed, then ``chunks`` timed.
+    ``round_trip_decode_steps`` covers every step, warm ones too."""
     tcfg = dataclasses.replace(s.tcfg, batch_size=rl_batch,
                                rl=dataclasses.replace(s.tcfg.rl, max_len=s.mcfg.max_len))
     step = make_train_step(tcfg, s.luts, rl_enabled=True)
@@ -182,7 +195,7 @@ def rl_probe(s: Setup, rl_batch: int = 512, chunks: int = 3, warm_chunks: int = 
         for i in range(n_chunks * chunk):
             s.state, m = step(s.state, batch, seed + i, dyn)
         return m
-    with recorded_rollouts() as rollouts:
+    with recorded_rollouts() as (rollouts, round_trips):
         run(warm_chunks, 1000)
         _sync(s.device)
         _reset_peak(s.device)
@@ -196,6 +209,7 @@ def rl_probe(s: Setup, rl_batch: int = 512, chunks: int = 3, warm_chunks: int = 
             'steps': chunks * chunk, 'rl_batch_size': rl_batch,
             'metrics': {k: v.item() for k, v in m.items()},
             'decode_steps': steps[warm:], 'warm_decode_steps': steps[:warm],
+            'round_trip_decode_steps': _round_trip_steps(round_trips),
             'peak_gib': _peak_gib(s.device)}
 
 

@@ -9,15 +9,19 @@ The port's submodules carry the flax module names, so a flax leaf path
     scale                 -> weight             (LayerNorm)
     embedding             -> weight             (Embed -> Embedding)
     query                 -> query              (ElementAttention)
+    slot_queries          -> slot_queries       (SetFormulaDecoder)
 
 The trees come in as numpy arrays (``jax.tree.map(np.asarray, params)``),
 so this module needs no JAX.  Loading is strict: a missing, unexpected or
 mis-shaped parameter raises.  The physics-Z Magpie projection
-(``{'kernel': [M, 62], 'bias': [62]}``) becomes an ``nn.Linear``.
+(``{'kernel': [M, 62], 'bias': [62]}``) becomes an ``nn.Linear``; the
+train state's ``set_params`` a ``SetFormulaDecoder`` whose widths are read
+from the tree's shapes.
 
 A machine without the Orbax reader (tensorstore) takes the trees from an
 npz file instead (``load_params_npz``): one float32 array a leaf, keyed by
-its ``/``-joined path under ``enc_params/`` and ``dec_params/``.
+its ``/``-joined path under ``enc_params/``, ``dec_params/`` and, where the
+train state has a set decoder, ``set_params/``.
 """
 
 from __future__ import annotations
@@ -32,9 +36,11 @@ from torch import nn
 from ..models.config import ModelConfig
 from ..models.decoder import FormulaDecoder
 from ..models.encoder import MaterialsEncoder
+from ..models.set_decoder import SetFormulaDecoder
 
 _LEAF = {'kernel': 'weight', 'bias': 'bias', 'scale': 'weight',
-         'embedding': 'weight', 'query': 'query'}
+         'embedding': 'weight', 'query': 'query', 'slot_queries': 'slot_queries'}
+GROUPS = ('enc_params', 'dec_params', 'set_params')
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -45,20 +51,24 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
             yield prefix + (k,), v
 
 
-def load_params_npz(path: str | Path) -> Tuple[Dict, Dict]:
-    """(enc_params, dec_params) as nested dicts of numpy arrays from an npz
-    file whose keys are ``enc_params/<path>`` and ``dec_params/<path>``."""
-    trees: Dict[str, Dict] = {'enc_params': {}, 'dec_params': {}}
+def load_params_npz(path: str | Path) -> Dict[str, Dict]:
+    """{group: nested dict of numpy arrays} from an npz file whose keys are
+    ``<group>/<path>``: ``enc_params`` and ``dec_params``, and
+    ``set_params`` where the file holds it."""
+    trees: Dict[str, Dict] = {}
     with np.load(path) as npz:
         for key in npz.files:
             root, *mods, leaf = key.split('/')
-            if root not in trees or not mods:
+            if root not in GROUPS or not mods:
                 raise KeyError(f'{path}: unexpected key {key}')
-            node = trees[root]
+            node = trees.setdefault(root, {})
             for m in mods:
                 node = node.setdefault(m, {})
             node[leaf] = npz[key]
-    return trees['enc_params'], trees['dec_params']
+    for root in GROUPS[:2]:
+        if root not in trees:
+            raise KeyError(f'{path}: no {root}')
+    return trees
 
 
 def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -78,22 +88,46 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def set_decoder_from_jax(set_params: Mapping, device='cuda',
+                         dtype=torch.float32) -> SetFormulaDecoder:
+    """The train state's ``set_params`` loaded into a new
+    ``SetFormulaDecoder`` on ``device`` (in eval mode) computing in
+    ``dtype``.  Its widths come from the tree's shapes; the head count,
+    which they do not show, is the module's default, 8, the only one the
+    JAX train step builds."""
+    sd = state_dict_from_flax(set_params)
+    n_slots, d_model = sd['slot_queries'].shape
+    n_layers = len({k.split('.')[0] for k in sd if k.startswith('layer_')})
+    dec = SetFormulaDecoder(
+        latent_dim=sd['z_proj.weight'].shape[1], d_model=d_model, num_layers=n_layers,
+        dim_feedforward=sd['layer_0.Dense_0.weight'].shape[0], n_slots=n_slots,
+        n_elements=sd['element_head.weight'].shape[0] - 1,
+        n_z_tokens=sd['z_proj.weight'].shape[0] // d_model, device=device, dtype=dtype)
+    dec.load_state_dict(sd, strict=True)
+    return dec.eval()
+
+
 def params_from_jax(enc_params: Mapping, dec_params: Mapping, cfg: ModelConfig,
                     device='cuda', dtype=torch.float32,
-                    pz_params: Optional[Mapping] = None):
+                    pz_params: Optional[Mapping] = None,
+                    set_params: Optional[Mapping] = None) -> Tuple:
     """The JAX package's encoder and decoder params, as numpy trees, loaded
     into a new ``MaterialsEncoder`` and ``FormulaDecoder`` on ``device``
     (in eval mode) that compute in ``dtype`` (flax's ``dtype``); the
-    parameters are float32 whatever it is.  Given the train state's
-    ``pz_params`` too, returns (encoder, decoder, projection) with the
-    projection as a float32 ``nn.Linear(M, 62)``."""
+    parameters are float32 whatever it is.  Returns (encoder, decoder),
+    then, given the train state's ``pz_params``, the projection as a
+    float32 ``nn.Linear(M, 62)``, then, given its ``set_params``, the set
+    decoder (``set_decoder_from_jax``)."""
     encoder = MaterialsEncoder(cfg, device=device, dtype=dtype)
     decoder = FormulaDecoder(cfg, device=device, dtype=dtype)
     encoder.load_state_dict(state_dict_from_flax(enc_params), strict=True)
     decoder.load_state_dict(state_dict_from_flax(dec_params), strict=True)
-    if pz_params is None:
-        return encoder.eval(), decoder.eval()
-    m, out = np.shape(pz_params['kernel'])
-    proj = nn.Linear(m, out, device=device, dtype=torch.float32)
-    proj.load_state_dict(state_dict_from_flax(pz_params), strict=True)
-    return encoder.eval(), decoder.eval(), proj
+    out = (encoder.eval(), decoder.eval())
+    if pz_params is not None:
+        m, n_out = np.shape(pz_params['kernel'])
+        proj = nn.Linear(m, n_out, device=device, dtype=torch.float32)
+        proj.load_state_dict(state_dict_from_flax(pz_params), strict=True)
+        out += (proj,)
+    if set_params is not None:
+        out += (set_decoder_from_jax(set_params, device, dtype),)
+    return out

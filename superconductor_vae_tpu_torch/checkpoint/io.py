@@ -4,10 +4,11 @@ checkpoint/io.py).
 A checkpoint is a directory, ``<root>/epoch_NNNNN`` or ``<root>/<tag>``
 ('best', 'interrupt'), holding:
 - ``state.pt``, a ``torch.save`` payload of CPU tensors: ``step``, the
-  encoder's, decoder's and physics-Z projection's ``state_dict``s
-  (``enc_params``, ``dec_params``, ``pz_params``), each optimizer's
-  ``state_dict`` with its accumulation state (``enc_opt``, ``dec_opt``,
-  ``pz_opt``), and what the caller adds (the loop's mastery arrays and
+  encoder's, decoder's, physics-Z projection's and set decoder's
+  ``state_dict``s (``enc_params``, ``dec_params``, ``pz_params``,
+  ``set_params``; the last two where the state has them), each
+  optimizer's ``state_dict`` with its accumulation state (``enc_opt``,
+  ``dec_opt``, ``pz_opt``, ``set_opt``), and what the caller adds (the loop's mastery arrays and
   Tc-bin tracker);
 - ``meta.json`` with the JAX package's keys: ``epoch``, ``metrics``,
   ``model_config``, ``manifest``, ``controllers``, ``eval_gating`` and
@@ -88,6 +89,9 @@ def save_checkpoint(root: str | Path, state, mcfg, tcfg,
     if state.pz_proj is not None:
         payload['pz_params'] = state.pz_proj.state_dict()
         payload['pz_opt'] = state.pz_opt.state_dict()
+    if state.set_decoder is not None:
+        payload['set_params'] = state.set_decoder.state_dict()
+        payload['set_opt'] = state.set_opt.state_dict()
     if extra_arrays:
         payload.update(extra_arrays)
     torch.save(_to_cpu(payload), tmp / PAYLOAD)

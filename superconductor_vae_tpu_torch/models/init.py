@@ -1,7 +1,8 @@
 """Seeded parameter initialisation with the JAX package's initialisers.
 
 Linear weights and the element-attention query: Xavier uniform; biases:
-zeros; embeddings: normal(0, 0.02); LayerNorm: ones and zeros.  Values
+zeros; embeddings and the set decoder's slot queries: normal(0, 0.02);
+LayerNorm: ones and zeros.  Values
 are drawn on the CPU from an explicit ``torch.Generator`` and copied to
 the parameters' device, so a seed gives the same weights on any device.
 The parameters are float32 whatever the model's compute dtype
@@ -16,6 +17,7 @@ import torch
 from torch import nn
 
 from .encoder import ElementAttention
+from .set_decoder import SetFormulaDecoder
 
 
 def _xavier(shape, generator) -> torch.Tensor:
@@ -40,4 +42,7 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
             m.bias.zero_()
         elif isinstance(m, ElementAttention):
             m.query.copy_(_xavier(tuple(m.query.shape), generator))
+        elif isinstance(m, SetFormulaDecoder):
+            m.slot_queries.copy_(torch.empty(tuple(m.slot_queries.shape)).normal_(
+                0.0, 0.02, generator=generator))
     return module

@@ -84,7 +84,9 @@ def main(argv=None):
     # TrainConfig's default
     tcfg = eval_train_config(mcfg.max_len, meta.get('eval_gating'))
     luts = build_luts(tokenizer, device=device)
-    encoder, decoder = params_from_jax(*load_params_npz(args.params), mcfg, device=device)
+    trees = load_params_npz(args.params)
+    encoder, decoder = params_from_jax(trees['enc_params'], trees['dec_params'], mcfg,
+                                       device=device)
 
     t0 = time.perf_counter()
     out = evaluate_autoregressive(

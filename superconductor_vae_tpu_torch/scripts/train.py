@@ -1,18 +1,15 @@
 """Training CLI (port of scripts/train.py): drives ``train()`` of the
 port, on the card unless ``--cpu``.
 
-    python -m superconductor_vae_tpu_torch.scripts.train \\
-        --set hungarian_enabled=false --set use_round_trip=false
-    python -m superconductor_vae_tpu_torch.scripts.train --cpu --synthetic --tiny \\
-        --epochs 1 --set hungarian_enabled=false --set use_round_trip=false
+    python -m superconductor_vae_tpu_torch.scripts.train
+    python -m superconductor_vae_tpu_torch.scripts.train --cpu --synthetic --tiny --epochs 1
 
 The flags are the JAX CLI's; ``--set KEY=VALUE`` overrides any
-``TrainConfig`` field with the same parsing.  ``TrainConfig``'s defaults
-turn on the set decoder (``hungarian_enabled``) and the A5 round-trip
-loss (``use_round_trip``), which the port does not have yet (the
-set-decoder and phase-2 slices), so the two ``--set``s above are needed:
-without them the CLI stops with ``NotImplementedError``.  ``--csv``
-defaults to the repo's corpus, data/processed/jarvis_merged.csv.gz.
+``TrainConfig`` field with the same parsing.  With none, the run is at
+``TrainConfig()``'s defaults, the set decoder and the A5 round-trip loss
+included.  ``--csv`` defaults to the repo's corpus,
+data/processed/jarvis_merged.csv.gz.  ``train_resilient.py`` relaunches
+this CLI after a crash or a stall.
 """
 
 from __future__ import annotations
@@ -24,10 +21,7 @@ DEFAULT_CSV = 'data/processed/jarvis_merged.csv.gz'
 
 
 def main(argv=None):
-    p = argparse.ArgumentParser(
-        description=__doc__.split('\n\n')[0],
-        epilog='The set decoder and the round-trip loss are not ported: pass '
-               '--set hungarian_enabled=false --set use_round_trip=false.')
+    p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('--csv', default=DEFAULT_CSV)
     p.add_argument('--epochs', type=int, default=None)
     p.add_argument('--batch-size', type=int, default=None)

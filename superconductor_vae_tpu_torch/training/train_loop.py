@@ -245,11 +245,14 @@ def train(
             # bf16 params of a params-only snapshot become float32 masters
             state.encoder.load_state_dict(restored['enc_params'])
             state.decoder.load_state_dict(restored['dec_params'])
+            # a checkpoint without a group keeps that group's fresh init
             if state.pz_proj is not None and 'pz_params' in restored:
                 state.pz_proj.load_state_dict(restored['pz_params'])
+            if state.set_decoder is not None and 'set_params' in restored:
+                state.set_decoder.load_state_dict(restored['set_params'])
             if 'step' in restored:
                 state.step = int(restored['step'])
-            for name in ('enc_opt', 'dec_opt', 'pz_opt'):
+            for name in ('enc_opt', 'dec_opt', 'set_opt', 'pz_opt'):
                 if name in restored and getattr(state, name) is not None:
                     getattr(state, name).load_state_dict(restored[name])
             ctl = meta.get('controllers') or {}

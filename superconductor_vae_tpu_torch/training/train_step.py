@@ -5,11 +5,16 @@ One step: encoder forward in train mode, the decoder's conditioning
 teacher-forced forward, with ``rl_enabled`` the SCST or RLOO loss
 (ops/rl.py: rollouts without gradient, a TF re-score with it), the
 physics-Z loss through the learnable Magpie projection, the 17-term
-``multitask_loss`` and the theory loss (at its weight, 0 by default); then
-backward, and a separate global-norm clip and AdamW update for each of
-three parameter groups: the encoder, the decoder and the physics-Z
-projection, as the JAX step runs ``tx_enc``, ``tx_dec`` and a second
-``tx_enc`` state.  With ``accumulation_steps`` k > 1 each group's
+``multitask_loss``, the A5 round-trip loss (``use_round_trip``:
+ops/round_trip.py, a greedy rollout of a tenth of the batch, through K1
+under ``pallas_decode``, re-encoded), the theory loss (at its weight, 0
+by default) and the set decoder's Hungarian matching loss
+(``hungarian_enabled``: models/set_decoder.py, ops/hungarian.py), added
+in the JAX step's order; then backward, and a separate global-norm clip
+and AdamW update for each of four parameter groups: the encoder, the
+decoder, the physics-Z projection and the set decoder, as the JAX step
+runs ``tx_enc``, ``tx_dec``, a second ``tx_enc`` state and a second
+``tx_dec`` state.  With ``accumulation_steps`` k > 1 each group's
 optimizer is a ``MultiSteps`` (``optax.MultiSteps``): the clip and AdamW
 run every k-th step on the mean of the k gradients.
 ``make_epoch_runner`` runs the step over an epoch's batches gathered on
@@ -32,9 +37,12 @@ Differences from the JAX step, all in how and none in what it computes:
   seeded from the same pair on a stream of its own (the counterpart of
   the ``rl_rng`` half of ``jax.random.split``);
 - ``dyn`` holds plain numbers rather than traced scalars
-  (``entropy_pos_w`` a [T] tensor).
-The options whose paths are not ported yet raise ``NotImplementedError``
-(``check_supported``).
+  (``entropy_pos_w`` a [T] tensor);
+- the round trip's rollout runs under ``no_grad`` (JAX traces it under
+  ``value_and_grad``, which raises with the Pallas decode kernel; its
+  gradient is zero either way: ops/round_trip.py).
+``soft_token_enabled``, whose path is not ported yet, raises
+``NotImplementedError`` (``check_supported``).
 """
 
 from __future__ import annotations
@@ -46,11 +54,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models import FormulaDecoder, MaterialsEncoder, init_params
+from ..models import FormulaDecoder, MaterialsEncoder, SetFormulaDecoder, init_params
 from ..models.config import ModelConfig
+from ..ops.hungarian import hungarian_matching_loss
 from ..ops.losses import multitask_loss, tc_kelvin
 from ..ops.physics_z_loss import init_magpie_proj, physics_z_loss
 from ..ops.rl import rloo_loss, scst_loss
+from ..ops.round_trip import round_trip_loss
 from ..ops.theory import theory_loss
 from ..tokenizer import FractionAwareTokenizer
 from ..utils.device import resolve_device
@@ -105,17 +115,9 @@ def check_supported(tcfg: TrainConfig) -> None:
     of the JAX step that is not ported yet, naming the part, and
     ``ValueError`` for a compute dtype other than float32 or bfloat16."""
     compute_dtype(tcfg)
-    missing = []
-    if tcfg.hungarian_enabled:
-        missing.append('hungarian_enabled (set decoder and Hungarian matching: '
-                       'the set-decoder slice)')
-    if tcfg.use_round_trip and tcfg.a5_weight > 0:
-        missing.append('use_round_trip (A5 round-trip loss: the phase-2 slice)')
     if tcfg.soft_token_enabled:
-        missing.append('soft_token_enabled (soft-token sampling: the '
-                       'decoding-variants slice)')
-    if missing:
-        raise NotImplementedError('train step: not ported yet: ' + '; '.join(missing))
+        raise NotImplementedError('train step: not ported yet: soft_token_enabled '
+                                  '(soft-token sampling: the decoding-variants slice)')
 
 
 class MultiSteps:
@@ -220,7 +222,8 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Te
 class TrainState:
     """Step count, models and their optimizers.  ``pz_proj`` is the
     learnable Magpie projection of the physics-Z loss (None: the fixed
-    one), with its own optimizer ``pz_opt``."""
+    one), with its own optimizer ``pz_opt``; ``set_decoder`` the set
+    decoder (None without ``hungarian_enabled``), with ``set_opt``."""
     step: int
     encoder: MaterialsEncoder
     decoder: FormulaDecoder
@@ -228,45 +231,64 @@ class TrainState:
     dec_opt: torch.optim.AdamW | MultiSteps
     pz_proj: Optional[nn.Linear] = None
     pz_opt: Optional[torch.optim.AdamW | MultiSteps] = None
+    set_decoder: Optional[SetFormulaDecoder] = None
+    set_opt: Optional[torch.optim.AdamW | MultiSteps] = None
 
     @classmethod
     def from_modules(cls, encoder: MaterialsEncoder, decoder: FormulaDecoder,
                      tcfg: TrainConfig, pz_proj: Optional[nn.Linear] = None,
-                     step: int = 0) -> 'TrainState':
+                     step: int = 0,
+                     set_decoder: Optional[SetFormulaDecoder] = None) -> 'TrainState':
         """A state over existing modules with fresh optimizers."""
+        def opt(m):
+            return make_optimizer(tcfg, m.parameters()) if m is not None else None
         return cls(step=step, encoder=encoder, decoder=decoder,
-                   enc_opt=make_optimizer(tcfg, encoder.parameters()),
-                   dec_opt=make_optimizer(tcfg, decoder.parameters()),
-                   pz_proj=pz_proj,
-                   pz_opt=(make_optimizer(tcfg, pz_proj.parameters())
-                           if pz_proj is not None else None))
+                   enc_opt=opt(encoder), dec_opt=opt(decoder),
+                   pz_proj=pz_proj, pz_opt=opt(pz_proj),
+                   set_decoder=set_decoder, set_opt=opt(set_decoder))
 
     def groups(self) -> List[Tuple[List[nn.Parameter], torch.optim.AdamW | MultiSteps]]:
-        """(parameters, optimizer) of each clip-and-update group."""
-        out = [(list(self.encoder.parameters()), self.enc_opt),
-               (list(self.decoder.parameters()), self.dec_opt)]
-        if self.pz_proj is not None:
-            out.append((list(self.pz_proj.parameters()), self.pz_opt))
-        return out
+        """(parameters, optimizer) of each clip-and-update group: the
+        encoder, the decoder, then the projection and the set decoder where
+        present."""
+        return [(list(m.parameters()), opt) for m, opt in (
+            (self.encoder, self.enc_opt), (self.decoder, self.dec_opt),
+            (self.pz_proj, self.pz_opt), (self.set_decoder, self.set_opt))
+            if m is not None]
+
+
+def make_set_decoder(mcfg: ModelConfig, tcfg: TrainConfig, device='cuda',
+                     dtype=torch.float32) -> SetFormulaDecoder:
+    """The set decoder at ``tcfg``'s hungarian_* widths over ``mcfg``'s
+    latent, one slot an element slot; its dropout is its own default (0.1),
+    as in JAX.  Parameters are left to ``init_params``."""
+    return SetFormulaDecoder(
+        latent_dim=mcfg.latent_dim, d_model=tcfg.hungarian_d_model,
+        num_layers=tcfg.hungarian_num_layers,
+        dim_feedforward=tcfg.hungarian_dim_feedforward, n_slots=mcfg.max_elements,
+        n_z_tokens=tcfg.hungarian_n_z_tokens, device=device, dtype=dtype)
 
 
 def create_train_state(mcfg: ModelConfig, tcfg: TrainConfig, seed: int = 0,
                        device='cuda') -> TrainState:
-    """Encoder, decoder and (with ``use_physics_z`` and
-    ``magpie_proj_learnable``) the Magpie projection on ``device``, with
-    float32 weights drawn from ``seed`` (models/init.py, then the
-    projection), the models computing in ``tcfg.compute_dtype``, and fresh
-    optimizers."""
+    """Encoder, decoder, (with ``use_physics_z`` and
+    ``magpie_proj_learnable``) the Magpie projection and (with
+    ``hungarian_enabled``) the set decoder on ``device``, with float32
+    weights drawn from ``seed`` in that order (models/init.py), the models
+    computing in ``tcfg.compute_dtype``, and fresh optimizers."""
     check_supported(tcfg)
     device = resolve_device(device)
     dtype = compute_dtype(tcfg)
     gen = torch.Generator().manual_seed(seed)
     encoder = init_params(MaterialsEncoder(mcfg, device=device, dtype=dtype), gen)
     decoder = init_params(FormulaDecoder(mcfg, device=device, dtype=dtype), gen)
-    pz_proj = None
+    pz_proj = set_decoder = None
     if tcfg.use_physics_z and tcfg.magpie_proj_learnable:
         pz_proj = init_magpie_proj(gen, mcfg.magpie_dim, device=device)
-    return TrainState.from_modules(encoder, decoder, tcfg, pz_proj)
+    if tcfg.hungarian_enabled:
+        set_decoder = init_params(make_set_decoder(mcfg, tcfg, device, dtype), gen)
+    return TrainState.from_modules(encoder, decoder, tcfg, pz_proj,
+                                   set_decoder=set_decoder)
 
 
 def default_dyn(tcfg: TrainConfig) -> Dict[str, float]:
@@ -303,7 +325,8 @@ def train_loss(state: TrainState, tcfg: TrainConfig, luts: Mapping[str, torch.Te
                generator: Optional[torch.Generator] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The JAX step's ``loss_fn``: (total, metrics).  With a ``generator``
-    the RL branch runs, its rollouts sampling from it."""
+    the RL branch runs, its rollouts sampling from it.  The round trip and
+    the set decoder's loss follow ``tcfg`` with or without it, as in JAX."""
     enc, dec = state.encoder, state.decoder
     enc_out = enc(batch['element_indices'], batch['element_fractions'],
                   batch['element_mask'], batch['magpie'], batch['tc'])
@@ -335,12 +358,43 @@ def train_loss(state: TrainState, tcfg: TrainConfig, luts: Mapping[str, torch.Te
                                     rl_reward_mean=reward_mean, dyn=dyn, physz_loss=pz)
     if generator is not None:
         metrics['reward_var'] = rl_extras['reward_var']
+    if tcfg.use_round_trip and tcfg.a5_weight > 0:
+        # A5 round-trip cycle consistency on the first tenth of the batch
+        subset = max(int(batch['tokens'].shape[0] * tcfg.round_trip_subset_fraction), 1)
+        rt = round_trip_loss(enc, dec, enc_out['z'], stoich, heads_vec,
+                             enc_out['magpie_pred'], enc_out['tc_pred'], luts, subset,
+                             z_weight=tcfg.a5_z_weight, tc_weight=tcfg.a5_tc_weight,
+                             max_len=dec.cfg.max_len)
+        total = total + (tcfg.loss.constraint_zoo_weight * tcfg.a5_weight
+                         * rt['round_trip_loss'])
+        metrics['a5_z_mse'] = rt['z_mse']
+        metrics['a5_tc_mse'] = rt['tc_mse']
+        metrics['total'] = total
     if tcfg.use_theory_loss:
         th = theory_loss(tc_kelvin(enc_out['tc_pred'], tcfg.loss), batch['family'],
                          batch['element_fractions'], batch['element_indices'],
                          batch['element_mask'])
         total = total + dyn.get('theory_w', tcfg.theory_weight) * th['total']
         metrics['theory_loss'] = th['total']
+        metrics['total'] = total
+    if tcfg.hungarian_enabled:
+        # the set decoder: a parallel path on the same z
+        if state.set_decoder is None:
+            raise ValueError('hungarian_enabled: the train state has no set decoder')
+        z_set = enc_out['z'].detach() if tcfg.hungarian_mode == 'set_only' else enc_out['z']
+        set_out = _f32(state.set_decoder(z_set))
+        h = hungarian_matching_loss(
+            set_out['element_logits'], set_out['fraction_pred'],
+            set_out['presence_logits'], batch['element_indices'],
+            batch['element_fractions'], batch['element_mask'],
+            element_weight=tcfg.hungarian_element_weight,
+            fraction_weight=tcfg.hungarian_fraction_weight,
+            no_object_weight=tcfg.hungarian_no_object_weight,
+            presence_weight=tcfg.hungarian_presence_weight)
+        total = total + tcfg.hungarian_loss_weight * h['total']
+        metrics['hungarian_loss'] = h['total']
+        metrics['set_element_accuracy'] = h['element_accuracy']
+        metrics['set_exact'] = h['set_exact']
         metrics['total'] = total
     return total, metrics
 
@@ -353,8 +407,11 @@ def make_train_step(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
     [B, 12], magpie [B, M], tc [B], tokens [B, max_len], is_sc, hp, family
     [B] and comp_targets [B, 15] on the models' device.  ``metrics`` are
     detached scalars on the device (reading one waits for the step):
-    ``multitask_loss``'s, ``theory_loss`` and ``grad_norm``, the global
-    norm of the encoder and decoder gradients before clipping.  With
+    ``multitask_loss``'s, with ``use_round_trip`` ``a5_z_mse`` and
+    ``a5_tc_mse``, ``theory_loss``, with ``hungarian_enabled``
+    ``hungarian_loss``, ``set_element_accuracy`` and ``set_exact``, and
+    ``grad_norm``, the global norm of the encoder and decoder gradients
+    before clipping (the other groups' are not in it, as in JAX).  With
     ``rl_enabled`` the step adds the SCST or RLOO loss (``tcfg.rl.method``)
     at ``dyn['rl_w']``, and its mean reward and ``reward_var`` to the
     metrics.  ``state.step`` counts steps (mini-steps under
@@ -363,8 +420,9 @@ def make_train_step(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor], seed: int,
              dyn: Mapping[str, float]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        state.encoder.train()
-        state.decoder.train()
+        for m in (state.encoder, state.decoder, state.set_decoder):
+            if m is not None:
+                m.train()
         groups = state.groups()
         device = groups[0][0][0].device
         cuda = [device] if device.type == 'cuda' else []

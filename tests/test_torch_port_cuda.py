@@ -1,6 +1,7 @@
 """The kernels on the card against their plain PyTorch versions (K1, the
 decode-step attention; K2, the flash-attention forward), one train step
-on the card against the same step on the CPU, the dataset eval through
+on the card against the same step on the CPU (without and with the set
+decoder and the round trip, whose rollout runs K1), the dataset eval through
 K1 against the plain attention path, K1's bf16 instance at the bench's
 shapes and in a bf16 greedy rollout against the plain path, and train() on
 the card with K1 in its eval and RL rollouts and a checkpoint round trip.
@@ -65,7 +66,9 @@ K1_CASES = [pytest.param(1, 1, 0, 72, id='1-1-0'), pytest.param(3, 30, 0, 72, id
             (2, 257, 200, 72), (1, 257, 256, 72),
             (3, 38, 37, 64), (3, 38, 37, 128), (2, 38, 32, 256), (2, 30, 29, 256),
             (1, 257, 200, 256), (3, 38, 37, 66), (3, 30, 7, 66), (2, 257, 200, 70),
-            (512, 30, 29, 72), (1024, 30, 29, 72)]
+            (512, 30, 29, 72), (1024, 30, 29, 72),
+            # the round trip's rollouts: a tenth of a batch of 256 and 512
+            (25, 30, 0, 72), (25, 30, 29, 72), (51, 30, 14, 72), (51, 30, 29, 72)]
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
@@ -388,11 +391,14 @@ def test_train_on_the_card_with_k1_and_a_checkpoint_round_trip(cuda, tmp_path, m
     assert np.isfinite([r['total'] for r in out['history']]).all()
 
 
-def test_epoch_runner_makes_the_host_wait_nowhere(cuda):
-    """A teacher-forced epoch of make_epoch_runner at tiny width runs under
-    ``torch.cuda.set_sync_debug_mode('error')``: no operation in it makes
-    the host wait for the card (a scalar copied from the host would); the
-    read of its sums does, which shows that the mode is on."""
+@pytest.mark.parametrize('defaults', [False, True], ids=['tf', 'defaults'])
+def test_epoch_runner_makes_the_host_wait_nowhere(cuda, defaults):
+    """A teacher-forced epoch of make_epoch_runner at tiny width, without
+    and with the set decoder and the round trip (TrainConfig()'s defaults,
+    K1 in the rollout), runs under ``torch.cuda.set_sync_debug_mode('error')``:
+    no operation in it makes the host wait for the card (a scalar copied
+    from the host would); the read of its sums does, which shows that the
+    mode is on."""
     import numpy as np
     from superconductor_vae_tpu_torch.data import synthetic_dataset
     from superconductor_vae_tpu_torch.models import tiny_test_config
@@ -400,9 +406,10 @@ def test_epoch_runner_makes_the_host_wait_nowhere(cuda):
     from superconductor_vae_tpu_torch.training import (
         TrainConfig, build_luts, create_train_state, default_dyn, make_epoch_runner)
     from superconductor_vae_tpu_torch.training.evaluate import _to_device
-    cfg = tiny_test_config()
+    import dataclasses
+    cfg = dataclasses.replace(tiny_test_config(), pallas_decode=True)
     tc = TrainConfig(batch_size=16, max_formula_len=cfg.max_len, use_physics_z=False,
-                     hungarian_enabled=False, use_round_trip=False)
+                     hungarian_enabled=defaults, use_round_trip=defaults)
     ds = synthetic_dataset(n=48, max_len=cfg.max_len, magpie_dim=cfg.magpie_dim)
     data = _to_device(ds.batch(np.arange(len(ds))), 'cuda')
     run = make_epoch_runner(tc, build_luts(default_tokenizer(max_len=cfg.max_len), 'cuda'))
@@ -418,3 +425,81 @@ def test_epoch_runner_makes_the_host_wait_nowhere(cuda):
     finally:
         torch.cuda.set_sync_debug_mode('default')
     assert torch.isfinite(sums['total']).item()
+
+
+def test_default_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """One step at TrainConfig()'s defaults (the set decoder, the round
+    trip with K1 in its rollout) at tiny widths with a 512-wide latent, 32
+    rows (a round trip of 3), dropout off in every model, from the same
+    seed on the card and on the CPU: the metrics within 1e-4 relative, the
+    AdamW moments of the four groups within 1e-3 relative plus 1e-4 of
+    their tree's largest; the round trip's tokens equal except in rows
+    that passed a near-tie (top-two gap below 1e-4), the Hungarian
+    permutations equal except where the two assignments' costs lie within
+    1e-5."""
+    import dataclasses
+    import numpy as np
+    from superconductor_vae_tpu_torch.data import synthetic_dataset
+    from superconductor_vae_tpu_torch.models import SetDecoderLayer, tiny_test_config
+    from superconductor_vae_tpu_torch.ops import hungarian, round_trip
+    from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
+    from superconductor_vae_tpu_torch.training import (
+        TrainConfig, build_luts, create_train_state, default_dyn, make_train_step)
+    from superconductor_vae_tpu_torch.training.evaluate import _to_device
+
+    cfg = dataclasses.replace(tiny_test_config(), latent_dim=512, dropout=0.0,
+                              pallas_decode=True)
+    tc = TrainConfig(batch_size=32, max_formula_len=cfg.max_len)
+    dyn = dict(default_dyn(tc), physz_w=1.0)
+    data = synthetic_dataset(n=32, max_len=cfg.max_len, magpie_dim=cfg.magpie_dim).batch(
+        np.arange(32))
+    records = {'tokens': [], 'margin': [], 'perm': [], 'cost': []}
+    real_gen, real_assign = round_trip.generate_with_kv_cache, hungarian.hungarian_assignment
+
+    def gen(*a, **k):
+        out = real_gen(*a, **k)
+        records['tokens'].append(out['tokens'].cpu())
+        records['margin'].append(out['margin'].cpu())
+        return out
+
+    def assign(cost):
+        perm, total = real_assign(cost)
+        records['perm'].append(perm.cpu())
+        records['cost'].append(cost.detach().cpu())
+        return perm, total
+    monkeypatch.setattr(round_trip, 'generate_with_kv_cache', gen)
+    monkeypatch.setattr(hungarian, 'hungarian_assignment', assign)
+    runs = []
+    for dev in (cuda, torch.device('cpu')):
+        state = create_train_state(cfg, tc, seed=0, device=dev)
+        for m in state.set_decoder.modules():
+            if isinstance(m, SetDecoderLayer):
+                m.dropout = 0.0
+        step = make_train_step(tc, build_luts(default_tokenizer(max_len=cfg.max_len), dev))
+        before = decode_step_attention.launches
+        state, m = step(state, _to_device(data, dev), 0, dyn)
+        if dev.type == 'cuda':
+            assert decode_step_attention.launches - before == cfg.num_layers * (cfg.max_len - 1)
+        moments = [{i: opt.state[p]['exp_avg'].cpu() for i, p in enumerate(params)}
+                   for params, opt in state.groups()]
+        runs.append(({k: x.item() for k, x in m.items()}, moments))
+    (m_c, mom_c), (m_h, mom_h) = runs
+    assert set(m_c) == set(m_h) >= {'a5_z_mse', 'hungarian_loss', 'set_exact'}
+    for key, want in m_h.items():
+        assert m_c[key] == pytest.approx(want, rel=1e-4, abs=1e-6), key
+    assert len(mom_c) == len(mom_h) == 4
+    for got, want in zip(mom_c, mom_h):
+        scale = max(w.abs().max().item() for w in want.values())
+        for i, w in want.items():
+            assert ((got[i] - w).abs() <= 1e-3 * w.abs() + 1e-4 * scale).all(), i
+    tok_c, tok_h = records['tokens']
+    assert tok_c.shape[0] == 3
+    parted = (tok_c != tok_h).any(dim=1)
+    near = (torch.minimum(*records['margin']) < 1e-4).any(dim=1)
+    assert not (parted & ~near).any()
+    (perm_c, perm_h), cost = records['perm'], records['cost'][1]
+    differ = (perm_c != perm_h).any(dim=1)
+    rows = torch.arange(cost.shape[1])
+    for r in torch.nonzero(differ)[:, 0].tolist():
+        a, b = cost[r, rows, perm_c[r]].sum(), cost[r, rows, perm_h[r]].sum()
+        assert abs(a - b) <= 1e-5, (r, a, b)

@@ -14,10 +14,12 @@ tests/test_torch_port_loop_parts.py): one ``train()`` call of each package, 2 ep
   the moments agree to 1e-3, which must be at least 95% of the elements.
 
 The port alone, bit for bit: the epoch runner against the per-step path;
-a checkpoint's save and load; a run stopped by SIGINT after its second
-epoch and resumed from its checkpoint against an uninterrupted one, with
-dropout on, gradient accumulation across the save and an RL epoch after
-it.
+a checkpoint's save and load, the set decoder's parameters and optimizer
+included; a run stopped by SIGINT after its second epoch and resumed from
+its checkpoint against an uninterrupted one, with dropout on, gradient
+accumulation across the save, an RL epoch after it, and the set decoder
+and the round-trip loss on (``TrainConfig()``'s defaults; the set decoder
+at tiny widths here, ``_DEFAULTS``).
 """
 
 import csv
@@ -52,6 +54,10 @@ TIE = 1e-4
 SYNTH = dict(max_len=16, magpie_dim=16)
 _LOOP = dict(batch_size=16, max_formula_len=16, use_physics_z=False,
              hungarian_enabled=False, use_round_trip=False, learning_rate=1e-3)
+# the set decoder and the round-trip loss on, as TrainConfig() has them, with
+# the set decoder as narrow as the tiny model
+_DEFAULTS = dict(hungarian_enabled=True, use_round_trip=True, hungarian_d_model=32,
+                 hungarian_num_layers=2, hungarian_dim_feedforward=64)
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -186,12 +192,15 @@ def _tiny_state(tc, seed=0):
 
 
 def _snapshot(state):
-    """Params, every optimizer's state dict and the step, as CPU copies."""
+    """Params, every optimizer's state dict and the step, as CPU copies;
+    the set decoder's where the state has one."""
     out = {'step': state.step}
-    for name, m in (('enc', state.encoder), ('dec', state.decoder)):
-        out[name] = {k: v.clone() for k, v in m.state_dict().items()}
-    for name in ('enc_opt', 'dec_opt'):
-        out[name] = _clone(getattr(state, name).state_dict())
+    for name, m in (('enc', state.encoder), ('dec', state.decoder), ('set', state.set_decoder)):
+        if m is not None:
+            out[name] = {k: v.clone() for k, v in m.state_dict().items()}
+    for name in ('enc_opt', 'dec_opt', 'set_opt'):
+        if getattr(state, name) is not None:
+            out[name] = _clone(getattr(state, name).state_dict())
     return out
 
 
@@ -244,12 +253,12 @@ def test_epoch_runner_is_the_per_step_path():
 
 
 def test_save_then_load_is_bit_equal(tmp_path):
-    """A state mid-accumulation (k=3, one mini-step in) with its
-    controllers and mastery arrays: save, load into a fresh state, and
-    every parameter, moment, accumulator, count and controller comes back
-    equal."""
+    """A state mid-accumulation (k=3, one mini-step in) at the defaults
+    (with the set decoder) with its controllers and mastery arrays: save,
+    load into a fresh state, and every parameter, moment, accumulator,
+    count and controller comes back equal."""
     from superconductor_vae_tpu_torch.training import schedulers
-    tc = TrainConfig(**dict(_LOOP, accumulation_steps=3))
+    tc = TrainConfig(**dict(_LOOP, accumulation_steps=3, **_DEFAULTS))
     luts = build_luts(default_tokenizer(max_len=16), 'cpu')
     ds = synthetic_dataset(n=48, **SYNTH)
     state = _tiny_state(tc)
@@ -257,7 +266,7 @@ def test_save_then_load_is_bit_equal(tmp_path):
     for i in range(4):
         state, _ = step(state, _to_device(ds.batch(np.arange(i * 8, i * 8 + 8)), 'cpu'), 1,
                         default_dyn(tc))
-    assert state.enc_opt.mini_step == 1 and state.step == 4
+    assert state.enc_opt.mini_step == state.set_opt.mini_step == 1 and state.step == 4
     drop = schedulers.DropDetector(tc)
     for e, x in enumerate((0.3, 0.5, 0.2)):
         drop.check(e, x)
@@ -278,11 +287,13 @@ def test_save_then_load_is_bit_equal(tmp_path):
     fresh = _tiny_state(tc, seed=5)
     fresh.encoder.load_state_dict(restored['enc_params'])
     fresh.decoder.load_state_dict(restored['dec_params'])
+    fresh.set_decoder.load_state_dict(restored['set_params'])
     fresh.step = restored['step']
-    for name in ('enc_opt', 'dec_opt'):
+    for name in ('enc_opt', 'dec_opt', 'set_opt'):
         getattr(fresh, name).load_state_dict(restored[name])
     _assert_same(_snapshot(fresh), _snapshot(state))
-    for name in ('enc_opt', 'dec_opt'):
+    assert 'set' in _snapshot(fresh) and 'set_opt' in _snapshot(fresh)
+    for name in ('enc_opt', 'dec_opt', 'set_opt'):
         _assert_same(getattr(fresh, name).acc_grads, getattr(state, name).acc_grads, name)
         assert getattr(fresh, name).mini_step == 1
     _assert_same(restored['mastery'], mastery, 'mastery')
@@ -340,7 +351,7 @@ def _resume_config(**kw):
         rl_reactivation_window=2, rl_reactivation_force_exact=1.0, rl_min_ar_exact=0.0,
         rl_epoch_interval=2, rl=RLConfig(max_len=16),
         loss_skip_schedule=(('magpie_loss', 1e9, 1e9), ('stop_loss', 1e9, 1e9)),
-        loss_skip_frequency=3, curriculum_ar_enabled=True, **kw))
+        loss_skip_frequency=3, curriculum_ar_enabled=True, **dict(_DEFAULTS, **kw)))
 
 
 def test_resume_is_bit_equal_to_an_uninterrupted_run(tmp_path):
@@ -370,8 +381,10 @@ def test_resume_is_bit_equal_to_an_uninterrupted_run(tmp_path):
     for g, w in zip(first['history'] + rest['history'], hist):
         assert {k: v for k, v in g.items() if k not in timing} == {
             k: v for k, v in w.items() if k not in timing}
+    assert 'set' in _snapshot(whole['state'])
     _assert_same(_snapshot(rest['state']), _snapshot(whole['state']))
     _assert_same(rest['state'].enc_opt.acc_grads, whole['state'].enc_opt.acc_grads)
+    _assert_same(rest['state'].set_opt.acc_grads, whole['state'].set_opt.acc_grads)
     rows = list(csv.DictReader(open(tmp_path / 'cut' / 'training_metrics.csv')))
     assert [int(r['epoch']) for r in rows] == [0, 1, 2, 3]       # the resume appended
 
@@ -446,8 +459,6 @@ def test_drop_rollback_restores_the_best_checkpoint(tmp_path, monkeypatch, one_e
 
 @pytest.mark.parametrize('option,slice_name', [
     (dict(phase2_enabled=True), 'A.14'), (dict(debug_numerics=True), 'A.16'),
-    (dict(hungarian_enabled=True), 'set-decoder slice'),
-    (dict(use_round_trip=True), 'phase-2 slice'),
     (dict(soft_token_enabled=True), 'decoding-variants slice')])
 def test_unported_options_raise(tmp_path, option, slice_name):
     tc = TrainConfig(**dict(_LOOP, **option))
@@ -464,15 +475,40 @@ def test_train_defaults_to_the_card():
 
 
 def test_cli_runs_on_the_cpu(tmp_path):
+    """The CLI at TrainConfig()'s defaults (the set decoder and the round
+    trip on), with no --set."""
     out = cli.main(['--cpu', '--synthetic', '--tiny', '--epochs', '1', '--limit', '32',
-                    '--batch-size', '16', '--output', str(tmp_path),
-                    '--set', 'hungarian_enabled=false', '--set', 'use_round_trip=false',
-                    '--set', 'eval_max_batches=1'])
+                    '--batch-size', '16', '--output', str(tmp_path)])
     assert len(out['history']) == 1 and np.isfinite(out['history'][0]['total'])
     assert (tmp_path / 'training_metrics.csv').exists()
     assert next(out['encoder'].parameters()).device.type == 'cpu'
-    with pytest.raises(NotImplementedError, match='set-decoder slice'):
+    assert out['state'].set_decoder is not None
+    with pytest.raises(NotImplementedError, match='decoding-variants slice'):
         cli.main(['--cpu', '--synthetic', '--tiny', '--epochs', '1', '--output',
-                  str(tmp_path / 'refused')])
+                  str(tmp_path / 'refused'), '--set', 'soft_token_enabled=true'])
     with pytest.raises(SystemExit):
         cli.main(['--set', 'no_such_field=1'])
+
+
+def test_train_resilient_relaunches_with_resume(tmp_path, monkeypatch, capsys):
+    """The crash-restart wrapper: a child that exits 1 on its first launch
+    is relaunched with ``--resume auto`` and then finishes; the wrapper
+    returns 0 (cooldown 0, the poll shortened)."""
+    import sys
+    from superconductor_vae_tpu_torch.scripts import train_resilient
+    child = tmp_path / 'child.py'
+    log = tmp_path / 'argv.log'
+    child.write_text(
+        'import sys\n'
+        f'open({str(log)!r}, "a").write(" ".join(sys.argv[1:]) + "\\n")\n'
+        'sys.exit(0 if "--resume" in sys.argv else 1)\n')
+    monkeypatch.setattr(train_resilient, 'POLL_S', 0.05)
+    rc = train_resilient.main(['--cooldown', '0', '--stall-timeout', '60', '--',
+                               '--epochs', '3', '--output', str(tmp_path / 'run')],
+                              train_cmd=[sys.executable, str(child)])
+    assert rc == 0
+    assert log.read_text().splitlines() == [
+        f'--epochs 3 --output {tmp_path / "run"}',
+        f'--epochs 3 --output {tmp_path / "run"} --resume auto']
+    out = capsys.readouterr().out
+    assert 'exited rc=1; relaunching' in out and 'finished cleanly' in out

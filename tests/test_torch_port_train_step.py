@@ -61,7 +61,8 @@ from superconductor_vae_tpu_torch.checkpoint import params_from_jax
 from superconductor_vae_tpu_torch.checkpoint.from_jax import state_dict_from_flax
 from superconductor_vae_tpu_torch.data import (
     category_to_label, composition_slots, normalized_compositional_targets, read_csv_rows)
-from superconductor_vae_tpu_torch.models import config_from_meta, tiny_test_config
+from superconductor_vae_tpu_torch.models import (
+    SetDecoderLayer, config_from_meta, tiny_test_config)
 from superconductor_vae_tpu_torch.models.family_classifier import classify_batch
 from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
 from superconductor_vae_tpu_torch.training import (
@@ -149,16 +150,29 @@ def _scaled(tc, scale):
                                grad_clip=tc.grad_clip * scale)
 
 
+def _modules(state):
+    """The state's modules in the order of its groups."""
+    return [m for m in (state.encoder, state.decoder, state.pz_proj, state.set_decoder)
+            if m is not None]
+
+
 def _port_state(jstate, cfg, tc):
     """A port TrainState holding the JAX state's parameters and AdamW
-    moments (and step counts)."""
-    encoder, decoder, proj = params_from_jax(
+    moments (and step counts); with the JAX state's set decoder, the port's
+    runs without dropout (the tests build JAX's so)."""
+    encoder, decoder, proj, *set_dec = params_from_jax(
         jstate.enc_params, jstate.dec_params, cfg, device='cpu',
-        pz_params=jstate.pz_params)
-    state = TrainState.from_modules(encoder, decoder, tc, proj, step=int(jstate.step))
+        pz_params=jstate.pz_params, set_params=jstate.set_params)
+    set_dec = set_dec[0] if set_dec else None
+    if set_dec is not None:
+        for layer in set_dec.children():
+            if isinstance(layer, SetDecoderLayer):
+                layer.dropout = 0.0
+    state = TrainState.from_modules(encoder, decoder, tc, proj, step=int(jstate.step),
+                                    set_decoder=set_dec)
     for (params, opt), module, jopt in zip(
-            state.groups(), (encoder, decoder, proj),
-            (jstate.enc_opt, jstate.dec_opt, jstate.pz_opt)):
+            state.groups(), _modules(state),
+            (jstate.enc_opt, jstate.dec_opt, jstate.pz_opt, jstate.set_opt)):
         adam = _adam_states(jopt)
         mu, nu = _leaves(adam.mu), _leaves(adam.nu)
         for name, p in module.named_parameters():
@@ -170,13 +184,12 @@ def _port_state(jstate, cfg, tc):
 
 def _port_params(state):
     return [{k: v.detach().numpy().copy() for k, v in m.state_dict().items()}
-            for m in (state.encoder, state.decoder, state.pz_proj)]
+            for m in _modules(state)]
 
 
 def _port_moments(state):
     out = []
-    for (params, opt), module in zip(state.groups(),
-                                     (state.encoder, state.decoder, state.pz_proj)):
+    for (params, opt), module in zip(state.groups(), _modules(state)):
         out.append({n: (opt.state[p]['exp_avg'].numpy().copy(),
                         opt.state[p]['exp_avg_sq'].numpy().copy())
                     for n, p in module.named_parameters()})
@@ -261,12 +274,14 @@ def test_clip_is_active_for_encoder_and_decoder_only(runs):
             assert 0.05 < norm / runs['clip'] < 0.99
 
 
-def check_moments_and_updates(before, params, moments, jprev, jnext, lr, wd, t):
+def check_moments_and_updates(before, params, moments, jprev, jnext, lr, wd, t,
+                              names=('enc', 'dec', 'pz')):
     """The port's step against the JAX step from the same state ``jprev``:
-    the AdamW moments of each group against ``jnext``'s, the clipped
-    gradient's norm (at t=1), and each parameter change against the AdamW
-    rule on the port's own moments and against JAX's change."""
-    for g, name in enumerate(('enc', 'dec', 'pz')):
+    the AdamW moments of each group (``names``, in the order of ``before``,
+    ``params`` and ``moments``) against ``jnext``'s, the clipped gradient's
+    norm (at t=1), and each parameter change against the AdamW rule on the
+    port's own moments and against JAX's change."""
+    for g, name in enumerate(names):
         adam = _adam_states(getattr(jnext, f'{name}_opt'))
         assert int(adam.count) == t
         want_mu, want_nu = _leaves(adam.mu), _leaves(adam.nu)
@@ -355,13 +370,30 @@ def test_train_config_mirrors_jax():
         k: np.float32(v) for k, v in want.items()}
 
 
-@pytest.mark.parametrize('option', [
-    dict(hungarian_enabled=True), dict(use_round_trip=True), dict(soft_token_enabled=True)])
+@pytest.mark.parametrize('option', [dict(soft_token_enabled=True)])
 def test_unported_options_raise(option):
     tc = TrainConfig(**TCFG)
     luts = build_luts(default_tokenizer(max_len=16), 'cpu')
     with pytest.raises(NotImplementedError, match='slice'):
         make_train_step(dataclasses.replace(tc, **option), luts)
+
+
+def test_default_train_config_builds_and_runs_a_step():
+    """``TrainConfig()`` as it stands (the set decoder and the round-trip
+    loss on) builds a state with four update groups and a step that runs
+    and reports the new terms."""
+    tc = TrainConfig()
+    assert tc.hungarian_enabled and tc.use_round_trip and tc.a5_weight > 0
+    cfg = dataclasses.replace(tiny_test_config(), latent_dim=512)
+    state = create_train_state(cfg, tc, seed=0, device='cpu')
+    assert state.set_decoder is not None and len(state.groups()) == 4
+    luts = build_luts(default_tokenizer(max_len=cfg.max_len), 'cpu')
+    state, m = make_train_step(tc, luts)(state, _to_torch(_batches(cfg)[0]), 0,
+                                         default_dyn(tc))
+    for key in ('a5_z_mse', 'a5_tc_mse', 'hungarian_loss', 'set_element_accuracy',
+                'set_exact', 'grad_norm', 'total'):
+        assert torch.isfinite(m[key]), key
+    assert state.step == 1 and all(len(opt.state) > 0 for _, opt in state.groups())
 
 
 def test_dropout_masks_follow_seed_and_step():

@@ -27,6 +27,7 @@ import torch
 from superconductor_vae_tpu.models import FormulaDecoder as JaxDecoder
 from superconductor_vae_tpu.models import MaterialsEncoder as JaxEncoder
 from superconductor_vae_tpu.models.config import ModelConfig as JaxConfig
+from superconductor_vae_tpu.models.set_decoder import SetFormulaDecoder as JaxSetDecoder
 from superconductor_vae_tpu_torch.checkpoint import params_from_jax
 from superconductor_vae_tpu_torch.models import ModelConfig
 
@@ -65,6 +66,14 @@ def param_trees(cfg: ModelConfig, seed: int = 0):
     return _fill(enc_shapes, rng), _fill(dec_shapes, rng)
 
 
+def set_param_tree(latent_dim: int, seed: int = 2, **kw):
+    """A random numpy tree of the flax ``SetFormulaDecoder(latent_dim,
+    **kw)``'s shapes."""
+    shapes = jax.eval_shape(JaxSetDecoder(latent_dim=latent_dim, **kw).init,
+                            jax.random.PRNGKey(0), jnp.zeros((2, latent_dim)))
+    return _fill(shapes, np.random.default_rng(seed))
+
+
 def batch(cfg: ModelConfig, b: int, seed: int = 1):
     """A numpy eval batch: element slots, magpie, tc and target tokens."""
     rng = np.random.default_rng(seed)
@@ -94,12 +103,15 @@ def port_models(cfg: ModelConfig, trees):
 
 
 def export_params_npz(restored, out_path):
-    """A restored snapshot's (``load_checkpoint``) encoder and decoder
-    params as float32 arrays (exact for its bf16 values), keyed by
-    ``enc_params/`` or ``dec_params/`` and the leaf's ``/``-joined path, for
-    the port's ``load_params_npz``."""
+    """A restored snapshot's (``load_checkpoint``) encoder, decoder and,
+    where it has one, set decoder params as float32 arrays (exact for its
+    bf16 values), keyed by ``enc_params/``, ``dec_params/`` or
+    ``set_params/`` and the leaf's ``/``-joined path, for the port's
+    ``load_params_npz``."""
     flat = {}
-    for root in ('enc_params', 'dec_params'):
+    for root in ('enc_params', 'dec_params', 'set_params'):
+        if restored.get(root) is None:
+            continue
         for path, leaf in jax.tree_util.tree_flatten_with_path(restored[root])[0]:
             flat['/'.join([root] + [k.key for k in path])] = np.asarray(leaf, np.float32)
     Path(out_path).parent.mkdir(parents=True, exist_ok=True)
