@@ -43,6 +43,23 @@
    with the same weights: formulas/s, the decode steps summed over the
    batches, K1 launched 12 times a decode step, and the first 1,024 rows'
    exact match equal to the e2e phase's.
+6b. Speculative phase: speculative decoding (generation/speculative.py,
+   k=4, pure greedy) with the e2e phase's weights on its 1,024 rows, on a
+   twin of its decoder with the plain cache layout that holds the same
+   weights (the chunk forward's attention is plain PyTorch).  Two drafts
+   (models/draft.py): the corpus draft from all 26,917 kept rows (BOS
+   first, grammar-constrained), as the eval CLI's --speculative builds
+   it, and a self-consistent draft from the plain scan's streams without
+   the grammar constraint, as bench.py --spec builds it.  The plain greedy
+   scan (no gates, all 29 steps) runs through K1, 12 x 29 launches a batch;
+   the corpus draft goes through evaluate_autoregressive, the self draft
+   through speculative_generate, and neither launches a kernel.  Checks:
+   both give the plain scan's tokens up to each row's EOS, except where
+   the top two logits were within 1e-4; 8 rows of each on the CPU give the
+   card's tokens; at most one host read an iteration.  Prints the
+   acceptance rates, the iterations beside the 29 plain steps, formulas/s
+   of the plain scan and of each draft in turns, and the kernel launches
+   and host reads an iteration.
 7. K2 phase: the flash-attention forward against its plain version at the
    JAX tests' shapes ((T, Dh) in (128, 64), (256, 72), (128, 128), T=100
    at Dh=72) and at B=64, H=8, Dh=72, T=256, in float32 and bfloat16, and
@@ -83,6 +100,13 @@
    AdamW moments and updates as the train phase holds them, the round
    trip's tokens equal except at near-ties, the Hungarian permutations equal
    except between assignments whose costs lie within 1e-5.
+8c. Soft-token phase: the train step at TrainConfig()'s defaults with
+   soft_token_enabled (training/soft_token.py: a teacher-forced pass
+   without gradient, then a pass over mixed embeddings) at ratio 0.3, run4
+   widths, float32, batch 256, dropout 0.1: the default step and the
+   soft-token step timed in turns (samples/s), K1 launched 348 times a
+   step (the round trip), every metric finite; one soft-token step of 32
+   rows on the card and on the CPU as in the defaults phase's (b).
 9. RL phase: the RL train step (training/train_step.py, rl_enabled) at
    run4's widths with weights from a seed, float32, dropout 0.1, K1 in
    the rollouts, bench.py's RL TrainConfig (rl.max_len = max_len, rl_w 1)
@@ -1044,6 +1068,165 @@ def corpus_phase(torch, dev, ds, encoder, decoder, eval_exact):
     return launches
 
 
+# -- speculative phase ----------------------------------------------------------
+
+SPEC_K = 4                        # drafted tokens a chunk, as the eval's
+N_SPEC_CPU_ROWS = 8
+
+
+def spec_phase(torch, dev, ds, batches, encoder, decoder):
+    """Speculative decoding (generation/speculative.py) at run4's widths on
+    the data phase's batches, with the e2e phase's weights and fixed heads.
+    Two drafts: the corpus draft, built from every kept row's token stream
+    as the eval CLI builds it, and a self-consistent one, built from the
+    plain scan's streams without the grammar constraint as bench.py builds
+    it.  The plain greedy scan (no gates, all 29 steps) runs through K1,
+    its counts at 0 just before and read just after; the speculative side
+    runs on a twin decoder with the plain cache layout that holds the same
+    weights.  Checks: the corpus draft through evaluate_autoregressive (the
+    eval CLI's --speculative) and the self draft through
+    speculative_generate each give the plain scan's tokens up to each row's
+    EOS, except at near-ties, and launch neither kernel; 8 rows on the CPU
+    give the card's tokens.  Prints the acceptance rates, the iterations
+    beside the plain scan's steps, formulas/s of both in turns, and the
+    kernel launches and host reads an iteration.  Returns K1's launches."""
+    import numpy as np
+    from superconductor_vae_tpu_torch.generation import GenerationConfig, generate_with_kv_cache
+    from superconductor_vae_tpu_torch.generation.speculative import (
+        _as_draft_tables, speculative_generate)
+    from superconductor_vae_tpu_torch.models import FormulaDecoder
+    from superconductor_vae_tpu_torch.models.decoder import plain_layout
+    from superconductor_vae_tpu_torch.models.draft import build_ngram_draft
+    from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+    from superconductor_vae_tpu_torch.ops.fused_attention import flash_attention
+    from superconductor_vae_tpu_torch.tokenizer import BOS_ID, EOS_ID, default_tokenizer
+    from superconductor_vae_tpu_torch.training import (
+        build_luts, eval_train_config, evaluate, evaluate_autoregressive, stoich_conditioning)
+
+    cfg = decoder.cfg
+    steps = cfg.max_len - 1
+    tok = default_tokenizer(max_len=cfg.max_len)
+    twin = plain_layout(decoder)
+    check(all(a is b for a, b in zip(decoder.parameters(), twin.parameters()))
+          and not twin.cfg.pallas_decode, 'spec: the twin decoder does not share the weights')
+
+    def bos_stream(tokens):
+        return np.concatenate([np.full((len(tokens), 1), BOS_ID, np.int64),
+                               np.asarray(tokens, np.int64)], axis=1)
+    t0 = time.perf_counter()
+    corpus_np = build_ngram_draft(bos_stream(ds.tokens[:, 1:]), tok)
+    corpus_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        inputs = []
+        for bt in batches:
+            enc_out = encoder(bt['element_indices'], bt['element_fractions'],
+                              bt['element_mask'], bt['magpie'], bt['tc'])
+            inputs.append((enc_out['z'], stoich_conditioning(bt),
+                           encoder.heads_pred_for_decoder(enc_out)))
+    gcfg = GenerationConfig(max_len=cfg.max_len, temperature=0.0)   # no gates, every step
+
+    # the plain greedy scan through K1
+    torch.cuda.synchronize()
+    decode_step_attention.launches = 0
+    flash_attention.launches = 0
+    plain = [generate_with_kv_cache(decoder, *x, None, gcfg) for x in inputs]
+    torch.cuda.synchronize()
+    launches = decode_step_attention.launches
+    check(launches == cfg.num_layers * steps * len(batches),
+          f'spec: K1 launches {launches} in the plain scans != {cfg.num_layers} x {steps} x '
+          f'{len(batches)}')
+    t0 = time.perf_counter()
+    self_np = build_ngram_draft(bos_stream(torch.cat([o['tokens'] for o in plain]).cpu()),
+                                tok, grammar_constrained=False)
+    self_s = time.perf_counter() - t0
+    drafts = {'corpus': _as_draft_tables(corpus_np, dev), 'self': _as_draft_tables(self_np, dev)}
+    print(f'spec: drafts built on the host: corpus ({len(ds)} rows, grammar-constrained) '
+          f'{corpus_s:.2f} s, {int((corpus_np["trigram"] >= 0).sum())} trigram contexts; '
+          f'self ({len(batches) * BATCH} plain streams, unconstrained) {self_s:.2f} s, '
+          f'{int((self_np["trigram"] >= 0).sum())} contexts')
+
+    # the corpus draft through the entry point: the eval's speculative branch
+    luts = build_luts(tok, device=dev)
+    sub = ds.subset(np.arange(len(batches) * BATCH))
+    k1_before = decode_step_attention.launches
+    with CallLog(evaluate, 'speculative_generate') as log:
+        out = evaluate_autoregressive(encoder, twin, sub, eval_train_config(cfg.max_len), luts,
+                                      batch_size=BATCH, speculative_tables=corpus_np)
+    check(decode_step_attention.launches == k1_before and flash_attention.launches == 0,
+          'spec: the speculative path launched a kernel')
+    results = {'corpus': log.outputs}
+    results['self'] = [speculative_generate(twin, *x, drafts['self'], k=SPEC_K) for x in inputs]
+    check(decode_step_attention.launches == k1_before and flash_attention.launches == 0,
+          'spec: the speculative path launched a kernel')
+    for name, outs in results.items():
+        ties = 0
+        for i, (o, p) in enumerate(zip(outs, plain)):
+            check(o['tokens'].shape == (BATCH, steps), f'spec {name}: tokens shape')
+            ties += compare_streams({'generated': o['tokens'], 'margin': o['margin']},
+                                    {'generated': p['tokens'], 'margin': p['margin']}, EOS_ID,
+                                    f'spec {name} batch {i} vs the plain scan through K1')
+        acc = [float(o['acceptance_rate']) for o in outs]
+        iters = [o['n_iterations'] for o in outs]
+        print(f'spec: {name} draft: acceptance {", ".join(f"{a:.4f}" for a in acc)}; '
+              f'iterations {iters} against {steps} plain steps a batch '
+              f'(steps / (1 + a k) = {[round(steps / (1 + a * SPEC_K), 1) for a in acc]}); '
+              f'tokens equal to the plain scan\'s up to EOS (near-tie divergences {ties})')
+    print(f'spec: eval of {out["n_evaluated"]} rows with the corpus draft: true_ar_exact '
+          f'{out["ar_exact"]:.4f}, tf_exact {out["tf_exact"]:.4f} (random weights)')
+
+    # formulas/s in turns, each turn the four batches, then a synchronise
+    def run(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x in inputs:
+            if name == 'plain':
+                generate_with_kv_cache(decoder, *x, None, gcfg)
+            else:
+                speculative_generate(twin, *x, drafts[name], k=SPEC_K)
+        torch.cuda.synchronize()
+        return len(inputs) * BATCH / (time.perf_counter() - t0)
+    rates = {'plain': [], 'corpus': [], 'self': []}
+    for name in ('plain', 'corpus', 'self', 'self', 'corpus', 'plain'):
+        rates[name].append(run(name))
+    print('spec: formulas/s in turns (batches of ' + f'{BATCH}, {len(inputs)} a turn): '
+          + '; '.join(f'{k} ' + ', '.join(f'{x:.1f}' for x in v) for k, v in rates.items())
+          + '; the plain greedy scan through K1 (no gates, all steps), speculative k='
+          f'{SPEC_K} through the plain attention')
+
+    # kernel launches and host reads an iteration (one batch)
+    x = inputs[0]
+    _, _, plain_kernels = profile_counts(torch, lambda: generate_with_kv_cache(
+        decoder, *x, None, gcfg))
+    for name in ('corpus', 'self'):
+        o, syncs = host_syncs(torch, lambda: speculative_generate(
+            twin, *x, drafts[name], k=SPEC_K))
+        _, busy, kernels = profile_counts(torch, lambda: speculative_generate(
+            twin, *x, drafts[name], k=SPEC_K))
+        n = o['n_iterations']
+        print(f'spec: {name} draft, one batch of {BATCH}: {n} iterations, {kernels} kernel '
+              f'launches ({kernels / n:.1f} an iteration; the plain scan {plain_kernels} = '
+              f'{plain_kernels / steps:.1f} a step), device busy {busy:.2f} ms, host reads '
+              f'{sum(syncs.values())} ({sum(syncs.values()) / n:.2f} an iteration) {dict(syncs)}')
+        check(sum(syncs.values()) <= n + 1, f'spec: {dict(syncs)} host reads in {n} iterations')
+
+    # the card against the CPU, a few rows, the same weights
+    dec_cpu = FormulaDecoder(twin.cfg, device='cpu').eval()
+    dec_cpu.load_state_dict(twin.state_dict())
+    for name, outs in results.items():
+        small = [v[:N_SPEC_CPU_ROWS].float().cpu() for v in inputs[0]]
+        cpu = speculative_generate(dec_cpu, *small, {k: None if v is None else v.cpu()
+                                                     for k, v in drafts[name].items()}, k=SPEC_K)
+        card = {k: outs[0][k][:N_SPEC_CPU_ROWS].cpu() for k in ('tokens', 'margin')}
+        ties = compare_streams({'generated': card['tokens'], 'margin': card['margin']},
+                               {'generated': cpu['tokens'], 'margin': cpu['margin']}, EOS_ID,
+                               f'spec {name} card vs CPU')
+        print(f'spec: {name} draft: {N_SPEC_CPU_ROWS} rows on the CPU give the card\'s tokens '
+              f'(near-tie divergences {ties})')
+    del twin, dec_cpu, drafts
+    torch.cuda.empty_cache()
+    return launches
+
+
 # -- train phase --------------------------------------------------------------
 
 N_TRAIN_STEPS = 8
@@ -1253,7 +1436,7 @@ def defaults_phase(torch, dev, batches):
     from superconductor_vae_tpu_torch.ops import hungarian, round_trip
     from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
     from superconductor_vae_tpu_torch.ops.fused_attention import flash_attention
-    from superconductor_vae_tpu_torch.tokenizer import EOS_ID, default_tokenizer
+    from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
     from superconductor_vae_tpu_torch.training import (
         TrainConfig, build_luts, create_train_state, default_dyn, make_epoch_runner,
         make_train_step)
@@ -1406,9 +1589,27 @@ def defaults_phase(torch, dev, batches):
     torch.cuda.empty_cache()
 
     # (b) card against CPU: one default step of 32 rows, dropout off
+    card_vs_cpu_step(torch, dev, batches[0], cfg, tcfg, dyn, 'defaults (b)')
+    torch.cuda.empty_cache()
+    return launches, rates, k1_rows
+
+
+def card_vs_cpu_step(torch, dev, batch, cfg, tcfg, dyn, phase):
+    """One step of ``tcfg`` on the first 32 rows of ``batch`` (a round trip
+    of 3), on the card and on the CPU from the same weights, dropout off in
+    every model: the metrics within METRIC_TOL, the four groups' AdamW
+    moments and updates (``check_updates``), the round trip's tokens equal
+    except at near-ties, the Hungarian permutations equal except between
+    assignments whose costs lie within HUNGARIAN_TIE."""
+    from superconductor_vae_tpu_torch.ops import hungarian, round_trip
+    from superconductor_vae_tpu_torch.tokenizer import EOS_ID, default_tokenizer
+    from superconductor_vae_tpu_torch.training import (
+        build_luts, create_train_state, make_train_step)
+
+    tok = default_tokenizer(max_len=cfg.max_len)
     cfg0 = dataclasses.replace(cfg, dropout=0.0)
     tcfg0 = dataclasses.replace(tcfg, batch_size=N_DEFAULT_CPU_ROWS)
-    small = {k: v[:N_DEFAULT_CPU_ROWS] for k, v in batches[0].items()}
+    small = {k: v[:N_DEFAULT_CPU_ROWS] for k, v in batch.items()}
     rec = {'tokens': [], 'margin': [], 'perm': [], 'cost': []}
 
     def recorded(fn, keys):
@@ -1432,28 +1633,95 @@ def defaults_phase(torch, dev, batches):
             runs.append((m, before, _group_tensors(st)))
             del st
     (m_c, before_c, after_c), (m_h, before_h, after_h) = runs
-    check(len(after_h) == 4, f'defaults (b): update groups {list(after_h)}')
-    check_metrics('defaults (b)', m_c, m_h, 'default step metrics')
-    check_updates(torch, 'defaults (b)', before_c, after_c, before_h, after_h,
+    check(len(after_h) == 4, f'{phase}: update groups {list(after_h)}')
+    check_metrics(phase, m_c, m_h, 'default step metrics')
+    check_updates(torch, phase, before_c, after_c, before_h, after_h,
                   tcfg.learning_rate)
     (tok_c, tok_h), (mar_c, mar_h) = rec['tokens'], rec['margin']
-    check(tok_c.shape[0] == 3, f'defaults (b): a round trip of {tok_c.shape[0]} rows')
+    check(tok_c.shape[0] == 3, f'{phase}: a round trip of {tok_c.shape[0]} rows')
     ties = compare_streams({'generated': tok_c, 'margin': mar_c},
                            {'generated': tok_h, 'margin': mar_h}, EOS_ID,
-                           'defaults (b) round trip')
+                           f'{phase} round trip')
     (perm_c, perm_h), cost = rec['perm'], rec['cost'][1]
     rows = torch.arange(cost.shape[1])
     swapped = 0
     for r in torch.nonzero((perm_c != perm_h).any(dim=1))[:, 0].tolist():
         a, b = cost[r, rows, perm_c[r]].sum().item(), cost[r, rows, perm_h[r]].sum().item()
-        check(abs(a - b) <= HUNGARIAN_TIE, f'defaults (b): row {r}: the card\'s assignment '
+        check(abs(a - b) <= HUNGARIAN_TIE, f'{phase}: row {r}: the card\'s assignment '
               f'costs {a!r}, the CPU\'s {b!r}')
         swapped += 1
-    print(f'defaults (b): the round trip\'s {tok_c.shape[0]} rollouts equal card vs CPU '
+    print(f'{phase}: the round trip\'s {tok_c.shape[0]} rollouts equal card vs CPU '
           f'(near-tie divergences {ties}); the Hungarian permutations of {perm_c.shape[0]} rows '
           f'equal ({swapped} swapped between assignments within {HUNGARIAN_TIE} of cost)')
+
+
+# -- soft-token phase -----------------------------------------------------------
+
+N_SOFT_STEPS = 2                  # timed steps of each configuration, in turns
+
+
+def soft_token_phase(torch, dev, batches):
+    """The soft-token train step (training/soft_token.py: a teacher-forced
+    pass without gradient, then the pass over mixed embeddings) at
+    TrainConfig()'s defaults (the set decoder and the round trip, its
+    rollout through K1) at run4's widths, float32, batch 256, dropout 0.1,
+    at ratio soft_token_end_ratio (0.3): warm-up, then the default step and
+    the soft-token step timed in turns (samples/s), K1 counted over the
+    timed steps (348 a step, the round trip's), every metric finite; then
+    one soft-token step of 32 rows on the card and on the CPU from the same
+    weights, dropout off (``card_vs_cpu_step``).  Returns K1's launches."""
+    import math
+    from superconductor_vae_tpu_torch.models import config_from_meta
+    from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+    from superconductor_vae_tpu_torch.ops.fused_attention import flash_attention
+    from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
+    from superconductor_vae_tpu_torch.training import (
+        TrainConfig, build_luts, create_train_state, default_dyn, make_train_step)
+
+    meta = json.loads(META.read_text())
+    cfg = config_from_meta(meta['model_config'], pallas_decode=True)
+    tcfg = TrainConfig(batch_size=BATCH)
+    configs = {'defaults': tcfg, 'soft': dataclasses.replace(tcfg, soft_token_enabled=True)}
+    dyn = dict(default_dyn(tcfg), physz_w=float(meta['controllers']['physz']['weight']),
+               soft_ratio=tcfg.soft_token_end_ratio)
+    luts = build_luts(default_tokenizer(max_len=cfg.max_len), device=dev)
+    steps = {k: make_train_step(c, luts) for k, c in configs.items()}
+    states = {k: create_train_state(cfg, c, seed=SEED, device=dev) for k, c in configs.items()}
+    for k in configs:                                                   # warm-up
+        states[k], _ = steps[k](states[k], batches[0], SEED, dyn)
+    rates = {k: [] for k in configs}
+    torch.cuda.synchronize()
+    decode_step_attention.launches = 0
+    flash_attention.launches = 0
+    for i, how in enumerate(('defaults', 'soft', 'soft', 'defaults')):
+        t0 = time.perf_counter()
+        for j in range(N_SOFT_STEPS):
+            states[how], m = steps[how](states[how], batches[(i + j + 1) % len(batches)],
+                                        SEED, dyn)
+        torch.cuda.synchronize()
+        rates[how].append(N_SOFT_STEPS * BATCH / (time.perf_counter() - t0))
+        vals = {key: v.item() for key, v in m.items()}
+        bad = [key for key, x in vals.items() if not math.isfinite(x)]
+        check(not bad, f'soft ({how}): metrics not finite: {bad}')
+        if how == 'soft':
+            soft_vals = vals
+    launches = decode_step_attention.launches
+    per_step = cfg.num_layers * (cfg.max_len - 1)
+    n_steps = 4 * N_SOFT_STEPS
+    check(flash_attention.launches == 0, 'soft: K2 was launched')
+    check(launches == n_steps * per_step,
+          f'soft: K1 launches {launches} over {n_steps} steps != {n_steps} x {per_step}')
+    print(f'soft: ratio {dyn["soft_ratio"]}, temperature {tcfg.soft_token_temperature}; K1 '
+          f'launches {launches} over {n_steps} steps = {per_step} a step (the round trip)')
+    print(f'soft: last soft-token step: total {soft_vals["total"]:.4f}, formula_loss '
+          f'{soft_vals["formula_loss"]:.4f}, grad_norm {soft_vals["grad_norm"]:.3f}')
+    print('soft: train samples/s in turns (steps of ' + f'{BATCH}, {N_SOFT_STEPS} a turn): '
+          + '; '.join(f'{how} ' + ', '.join(f'{x:.1f}' for x in v) for how, v in rates.items()))
+    del states, steps
     torch.cuda.empty_cache()
-    return launches, rates, k1_rows
+    card_vs_cpu_step(torch, dev, batches[0], cfg, configs['soft'], dyn, 'soft (b)')
+    torch.cuda.empty_cache()
+    return launches
 
 
 # -- RL phase -----------------------------------------------------------------
@@ -2436,18 +2704,22 @@ def main() -> int:
     ds, batches = data_phase(torch, dev)
     launches, (encoder, decoder), exact = e2e_phase(torch, dev, ds, batches)
     corpus_launches = corpus_phase(torch, dev, ds, encoder, decoder, exact)
+    spec_launches = spec_phase(torch, dev, ds, batches, encoder, decoder)
     del encoder, decoder
     torch.cuda.empty_cache()
     k2_rows, k2_err, k2_launches = k2_phase(torch, dev)
     step_rate, _ = train_phase(torch, dev, batches)
     defaults_launches, _, _ = defaults_phase(torch, dev, batches)
+    soft_launches = soft_token_phase(torch, dev, batches)
     rl_results = rl_phase(torch, dev, batches)
     k1_bf16, k1_bf16_err = k1_bf16_phase(torch, dev)
     bench_launches, _ = bench_phase(torch, dev)
     loop_launches = loop_phase(torch, dev, ds, step_rate)
 
     k1_paths = {'eval': launches, 'eval corpus': corpus_launches,
+                'spec (plain scan)': spec_launches,
                 'defaults (round trip)': defaults_launches,
+                'soft-token (round trip)': soft_launches,
                 'rl scst': rl_results['scst'][1], 'rl rloo': rl_results['rloo'][1],
                 'loop': loop_launches}
     launches = sum(k1_paths.values())

@@ -23,6 +23,17 @@ Each timed span ends in a synchronise.  ``--rl`` times the train step with
 the rollouts in it instead, ``--gen`` greedy generation alone (all
 max_len - 1 steps), ``--pallas-decode`` the decode-step kernel against its
 plain version at B = batch, T = max_len + 8, position T // 2.
+
+``--spec`` times speculative decoding (generation/speculative.py, k = 4)
+against the plain greedy scan (no gates, all max_len - 1 steps) from the
+same random z over ``--steps`` calls each, after one warm call: the draft
+is built from the model's own greedy stream, without the grammar
+constraint, as bench.py builds it.  The plain scan runs on the state's
+decoder, so through the decode-step kernel as the gen probe does; the
+speculative chunk forward needs the plain cache layout, so it runs on a
+twin decoder built with ``pallas_decode=False`` that holds the same
+parameters (``models/decoder.py`` ``plain_layout``), and its attention is
+plain PyTorch.
 ``--quick`` runs the tiny config (latent 2048) in float32 at batch 32 on
 the CPU, where the decode step takes the kernel's plain version.
 
@@ -49,10 +60,13 @@ import torch
 
 from .data import synthetic_dataset
 from .generation import GenerationConfig, generate_with_kv_cache
+from .generation.speculative import _as_draft_tables, speculative_generate
 from .models import ModelConfig, tiny_test_config
+from .models.decoder import plain_layout
+from .models.draft import build_ngram_draft
 from .ops import rl, round_trip
 from .ops.decode_attention import decode_step_attention, decode_step_attention_ref
-from .tokenizer import EOS_ID, default_tokenizer
+from .tokenizer import BOS_ID, EOS_ID, default_tokenizer
 from .training import (TrainConfig, build_luts, create_train_state, default_dyn,
                        make_train_step)
 from .training.evaluate import _to_device
@@ -252,6 +266,62 @@ def gen_probe(s: Setup, calls: int = 5, warm_calls: int = 1,
             'peak_gib': _peak_gib(s.device)}
 
 
+def spec_probe(s: Setup, calls: int = 20, k: int = 4) -> dict:
+    """bench.py --spec: speculative decoding with a self-consistent draft
+    (the model's own greedy stream, grammar constraint off) against the
+    plain greedy scan through the state's decoder, from one random z; one
+    warm call each, then ``calls`` timed.  ``rows_equal`` is the share of
+    rows whose two streams agree up to the first EOS, ``parted_beyond_ties``
+    the count of rows that part where the two largest logits lay ``tie``
+    or more apart in both runs (1e-4 in float32, 2**-4 in bf16, where the
+    two attention paths round differently and near-ties are common)."""
+    b = len(s.batch['tokens'])
+    g = torch.Generator(device=s.device).manual_seed(s.seed)
+    z = torch.randn(b, s.mcfg.latent_dim, generator=g, device=s.device).to(s.dtype)
+    stoich = torch.zeros(b, s.mcfg.stoich_input_dim, device=s.device, dtype=s.dtype)
+    hv = torch.zeros(b, s.mcfg.heads_input_dim, device=s.device, dtype=s.dtype)
+    gcfg = GenerationConfig(max_len=s.mcfg.max_len, temperature=0.0)
+    decoder = s.state.decoder
+    was_training = decoder.training
+    decoder.eval()
+    twin = plain_layout(decoder)
+    try:
+        ref = generate_with_kv_cache(decoder, z, stoich, hv, None, gcfg)
+        stream = np.concatenate([np.full((b, 1), BOS_ID, np.int64),
+                                 ref['tokens'].cpu().numpy()], axis=1)
+        tables = _as_draft_tables(build_ngram_draft(
+            stream, default_tokenizer(max_len=s.mcfg.max_len), grammar_constrained=False),
+            s.device)
+
+        def timed(fn):
+            out = fn()
+            _sync(s.device)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                out = fn()
+            _sync(s.device)
+            return out, time.perf_counter() - t0
+        plain_out, plain_wall = timed(
+            lambda: generate_with_kv_cache(decoder, z, stoich, hv, None, gcfg))
+        spec_out, spec_wall = timed(
+            lambda: speculative_generate(twin, z, stoich, hv, tables, k=k))
+    finally:
+        decoder.train(was_training)
+    mask = ref['mask'].bool()
+    diff = (spec_out['tokens'] != plain_out['tokens']) & mask
+    parted = diff.any(dim=1)
+    first = diff.int().argmax(dim=1, keepdim=True)
+    gap = torch.minimum(spec_out['margin'].gather(1, first),
+                        plain_out['margin'].gather(1, first))[:, 0]
+    tie = 1e-4 if s.dtype == torch.float32 else 2 ** -4
+    return {'formulas_per_s': calls * b / spec_wall, 'plain_formulas_per_s': calls * b / plain_wall,
+            'seconds': spec_wall, 'plain_seconds': plain_wall, 'calls': calls,
+            'acceptance_rate': float(spec_out['acceptance_rate']),
+            'n_iterations': spec_out['n_iterations'], 'plain_steps': s.mcfg.max_len - 1,
+            'rows_equal': 1.0 - float(parted.float().mean()),
+            'parted_beyond_ties': int((parted & (gap >= tie)).sum()), 'tie': tie}
+
+
 def decode_probe(s: Setup, iters: int = 50) -> dict:
     """bench.py --pallas-decode: the decode-step attention through its
     wrapper (the kernel on a card) against the plain version, µs a call
@@ -304,13 +374,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
     p.add_argument('--rl-batch-size', type=int, default=None,
                    help='batch of the RL probe (default 512; the batch with --quick)')
     p.add_argument('--gen', action='store_true', help='greedy KV-cache generation alone')
-    p.add_argument('--spec', action='store_true', help='speculative decoding (not ported)')
+    p.add_argument('--spec', action='store_true',
+                   help='speculative decoding against the plain greedy scan')
     p.add_argument('--pallas-decode', action='store_true',
                    help='the decode-step kernel against its plain version')
     args = p.parse_args(argv)
-    if args.spec:
-        raise NotImplementedError('--spec: speculative decoding (generation/speculative.py, '
-                                  'models/draft.py) is not ported yet (ROADMAP A.13)')
 
     s = build(quick=args.quick, batch_size=args.batch_size, rl=args.rl)
     b = len(s.batch['tokens'])
@@ -323,6 +391,18 @@ def main(argv: Optional[List[str]] = None) -> dict:
                'unit': f'us/step {r["shape"]}',
                'vs_baseline': round(r['plain_us'] / r['kernel_us'], 3),
                'plain_us': round(r['plain_us'], 2), **common}
+    elif args.spec:
+        r = spec_probe(s, calls=args.steps)
+        out = {'metric': 'speculative_generation_formulas_per_s_per_chip',
+               'value': round(r['formulas_per_s'], 2), 'unit': 'formulas/s/chip',
+               'vs_baseline': round(r['formulas_per_s'] / BASELINE_FORMULAS_PER_S, 2),
+               'acceptance_rate': round(r['acceptance_rate'], 4),
+               'speedup_vs_plain_scan': round(r['plain_seconds'] / r['seconds'], 3),
+               'plain_formulas_per_s': round(r['plain_formulas_per_s'], 2),
+               'n_iterations': r['n_iterations'], 'plain_steps': r['plain_steps'],
+               'rows_equal_to_plain_scan': r['rows_equal'],
+               'rows_parted_beyond_ties': r['parted_beyond_ties'], 'tie': r['tie'],
+               'spec_route': 'chunk verification, plain attention', **common}
     elif args.gen:
         r = gen_probe(s, calls=args.steps, early_exit=False)
         out = {'metric': 'kv_cache_generation_formulas_per_s_per_chip',

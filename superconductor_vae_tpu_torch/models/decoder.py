@@ -18,6 +18,7 @@ dtype, as flax's: the parameters are float32 whatever it is
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -282,6 +283,16 @@ class FormulaDecoder(nn.Module):
         heads['memory'] = memory
         return heads
 
+    def embed_hard(self, tokens) -> torch.Tensor:
+        """Token ids -> embeddings in the compute dtype (the soft-token
+        mixer's hard side)."""
+        return self.token_embedding(tokens)
+
+    def embed_soft(self, probs) -> torch.Tensor:
+        """Probability rows -> expected embedding, ``probs @ E`` in the
+        probabilities' dtype."""
+        return probs @ self.token_embedding.weight.to(probs.dtype)
+
     # -- single-token cached step ---------------------------------------------
     def decode_step(self, token, position: int, k_caches, v_caches, memory_kvs):
         """One AR step through all layers with the fixed-shape cache.
@@ -300,13 +311,112 @@ class FormulaDecoder(nn.Module):
         heads = self.output_heads(x, deterministic=True)
         return {k: v[:, 0] for k, v in heads.items()}, k_caches, v_caches
 
-    def init_cache(self, batch_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    # -- chunked cached forward (speculative verification) ----------------------
+    def _chunk_layers(self, x, mask, write, k_caches, v_caches, memory_kvs):
+        """The layers over a chunk of K tokens: ``write(cache, rows)`` puts
+        each layer's new K/V rows into its cache in place, then the chunk's
+        queries attend the whole cache under ``mask`` (plain attention, no
+        dropout).  Returns the output heads over the K positions."""
+        b, k = x.shape[:2]
+        d = self.cfg.d_model
+        for i, layer in enumerate(self.layers):
+            xn = layer.norm1(x)
+            q = layer._split(layer.self_q(xn))
+            kk, vv = layer.self_kv(xn)
+            write(k_caches[i], kk)
+            write(v_caches[i], vv)
+            sa = mha_attention(q, k_caches[i], v_caches[i], mask).reshape(b, k, d)
+            x = x + layer.self_o(sa)
+            xn = layer.norm2(x)
+            mk, mv = memory_kvs[i]
+            ca = mha_attention(layer._split(layer.cross_q(xn)), mk, mv).reshape(b, k, d)
+            x = x + layer.cross_o(ca)
+            x = x + layer.ff2(_gelu(layer.ff1(layer.norm3(x))))
+        return self.output_heads(x, deterministic=True)
+
+    def _check_chunk_layout(self):
+        if self.cfg.pallas_decode:
+            raise ValueError('the chunk forward needs the [L, B, T, H, Dh] cache layout '
+                             '(a decoder with pallas_decode=False)')
+
+    def decode_chunk(self, tokens, position: int, k_caches, v_caches, memory_kvs):
+        """K-token chunk forward with the fixed-shape cache: ``tokens [B, K]``
+        from ``position`` on, causal within the chunk, attending every cached
+        slot before it (query i attends slots <= position + i).  The K/V rows
+        go into the caches in place; a start past the end clamps, as XLA's
+        dynamic slices do.  Returns (heads over the K positions, k_caches,
+        v_caches)."""
+        self._check_chunk_layout()
+        b, k = tokens.shape
+        t_cache = k_caches.shape[2]
+        dev = tokens.device
+        pe_start = min(max(position, 0), self.pos_table.shape[0] - k)
+        x = self.token_embedding(tokens) + self.pos_table[pe_start:pe_start + k][None].to(
+            self.dtype)
+        q_pos = position + torch.arange(k, device=dev)
+        mask = torch.arange(t_cache, device=dev)[None, None, None, :] <= q_pos[None, None, :, None]
+        start = min(max(position, 0), t_cache - k)
+
+        def write(cache, rows):
+            cache[:, start:start + k] = rows
+        heads = self._chunk_layers(x, mask, write, k_caches, v_caches, memory_kvs)
+        return heads, k_caches, v_caches
+
+    def decode_chunk_perrow(self, tokens, positions, k_caches, v_caches, memory_kvs):
+        """``decode_chunk`` with a start position for each row (``positions``
+        [B] int64), so that each row of a speculative decode advances by its
+        own count.  The positional rows and the mask use the positions
+        clipped to the positional table (query i of row b attends slots <=
+        its clipped position); the cache write is a dense gather and select
+        over the cache axis: slot t of row b takes the chunk's row
+        t - positions[b] where that lies in 0..K-1, written in place.
+        Returns (heads over the K positions, k_caches, v_caches)."""
+        self._check_chunk_layout()
+        b, k = tokens.shape
+        dev = tokens.device
+        pos_idx = (positions[:, None] + torch.arange(k, device=dev)[None, :]).clamp(
+            0, self.pos_table.shape[0] - 1)                       # [B, K]
+        x = self.token_embedding(tokens) + self.pos_table[pos_idx].to(self.dtype)
+        t_cache = k_caches.shape[2]
+        cache_pos = torch.arange(t_cache, device=dev)             # [T]
+        mask = cache_pos[None, None, None, :] <= pos_idx[:, None, :, None]
+        offset = cache_pos[None, :] - positions[:, None]          # [B, T]
+        upd_idx = offset.clamp(0, k - 1)
+        sel = ((offset >= 0) & (offset < k))[:, :, None, None]
+
+        def write(cache, rows):
+            # cache [B, T, H, Dh], rows [B, K, H, Dh]
+            g = torch.gather(rows, 1, upd_idx[:, :, None, None].expand(
+                b, t_cache, *rows.shape[2:]))
+            cache.copy_(torch.where(sel, g, cache))
+        heads = self._chunk_layers(x, mask, write, k_caches, v_caches, memory_kvs)
+        return heads, k_caches, v_caches
+
+    def init_cache(self, batch_size: int, extra: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
         """Zeroed K and V caches in the compute dtype: [L, B, H, T, Dh] under
-        ``cfg.pallas_decode`` (the kernel's layout), else [L, B, T, H, Dh]."""
+        ``cfg.pallas_decode`` (the kernel's layout), else [L, B, T + extra,
+        H, Dh]: ``extra`` slack rows take a chunk's writes at the tail
+        (speculative decoding), which the kernel's layout refuses."""
         cfg = self.cfg
         if cfg.pallas_decode:
+            if extra != 0:
+                raise ValueError('init_cache: slack rows (the speculative chunk forward) '
+                                 'need the [L, B, T, H, Dh] layout, not pallas_decode')
             shape = (cfg.num_layers, batch_size, cfg.nhead, cfg.max_len, cfg.head_dim)
         else:
-            shape = (cfg.num_layers, batch_size, cfg.max_len, cfg.nhead, cfg.head_dim)
+            shape = (cfg.num_layers, batch_size, cfg.max_len + extra, cfg.nhead, cfg.head_dim)
         kw = dict(device=self.pos_table.device, dtype=self.dtype)
         return torch.zeros(shape, **kw), torch.zeros(shape, **kw)
+
+
+def plain_layout(decoder: FormulaDecoder) -> FormulaDecoder:
+    """``decoder`` if its caches have the plain [L, B, T, H, Dh] layout;
+    else a twin built with ``pallas_decode=False`` that holds the same
+    parameter objects (trained and updated as one), in the same mode.  The
+    speculative chunk forward needs that layout."""
+    if not decoder.cfg.pallas_decode:
+        return decoder
+    twin = FormulaDecoder(dataclasses.replace(decoder.cfg, pallas_decode=False),
+                          device=decoder.pos_table.device, dtype=decoder.dtype)
+    twin.load_state_dict(decoder.state_dict(keep_vars=True), assign=True)
+    return twin.train(decoder.training)

@@ -13,6 +13,10 @@ as an npz file (``checkpoint/from_jax.py`` ``load_params_npz``); the
 (``eval_gating``) and the corpus normalisation (``ckpt_skew_transform``).
 The flags and the summary's keys are those of the JAX package's CLI, which
 takes ``--checkpoint`` instead of ``--params`` and ``--meta``.
+``--speculative`` builds an n-gram draft from the evaluated rows' token
+stream (BOS in column 0) and decodes with speculative chunk verification
+(pure greedy, no decode gates); its chunk forward needs the plain cache
+layout, so ``--speculative --pallas-decode`` is refused.
 """
 
 from __future__ import annotations
@@ -47,19 +51,24 @@ def main(argv=None):
                    help='write per-sample error records JSONL here')
     p.add_argument('--out', default=None, help='write summary JSON here')
     p.add_argument('--speculative', action='store_true',
-                   help='not ported yet (A.13)')
+                   help='decode with the n-gram-draft speculative verifier '
+                        '(pure greedy, no decode gates) instead of the '
+                        'gated KV-cache scan')
     p.add_argument('--pallas-decode', action='store_true',
                    help='run the AR decode through K1, the decode-step '
                         'attention kernel (ModelConfig.pallas_decode)')
     args = p.parse_args(argv)
-    if args.speculative:
-        p.error('--speculative: the speculative decode is not ported yet (A.13)')
+    if args.speculative and args.pallas_decode:
+        p.error('--speculative --pallas-decode: the speculative chunk forward needs the '
+                'plain [L, B, T, H, Dh] cache layout, not the decode-step kernel\'s')
 
+    import numpy as np
     from superconductor_vae_tpu_torch.checkpoint import (
         ckpt_skew_transform, load_params_npz, params_from_jax)
     from superconductor_vae_tpu_torch.data import load_dataset
     from superconductor_vae_tpu_torch.models import config_from_meta
-    from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
+    from superconductor_vae_tpu_torch.models.draft import build_ngram_draft
+    from superconductor_vae_tpu_torch.tokenizer import BOS_ID, default_tokenizer
     from superconductor_vae_tpu_torch.training import (
         build_luts, eval_train_config, evaluate_autoregressive)
 
@@ -88,17 +97,24 @@ def main(argv=None):
     encoder, decoder = params_from_jax(trees['enc_params'], trees['dec_params'], mcfg,
                                        device=device)
 
+    spec_tables = None
+    if args.speculative:
+        stream = np.concatenate([np.full((len(ds), 1), BOS_ID, np.int64),
+                                 ds.tokens.astype(np.int64)[:, 1:]], axis=1)
+        spec_tables = build_ngram_draft(stream, tokenizer)
+
     t0 = time.perf_counter()
     out = evaluate_autoregressive(
         encoder, decoder, ds, tcfg, luts, tokenizer=tokenizer,
         batch_size=args.batch_size, max_batches=args.max_batches,
-        collect_errors=args.errors_out is not None)
+        collect_errors=args.errors_out is not None, speculative_tables=spec_tables)
     wall_s = time.perf_counter() - t0
 
     summary = {
         'checkpoint': str(Path(args.meta).parent),
         'epoch': meta.get('epoch'),
-        'decode_path': 'k1' if args.pallas_decode else 'plain',
+        'decode_path': ('speculative' if args.speculative
+                        else 'k1' if args.pallas_decode else 'plain'),
         'slice': dict(slice_provenance, limit=args.limit),
         'eval_wall_s': round(wall_s, 2),
         'formulas_per_s': round(out['n_evaluated'] / max(wall_s, 1e-9), 1),

@@ -1,7 +1,7 @@
 from .config import TrainConfig
 from .evaluate import (eval_batch, eval_generation_config, eval_train_config,
                        evaluate_autoregressive)
-from .train_step import (MultiSteps, TrainState, build_luts, check_supported,
+from .train_step import (MultiSteps, TrainState, build_luts,
                          clip_by_global_norm_, create_train_state, default_dyn,
                          make_epoch_runner, make_optimizer, make_set_decoder,
                          make_train_step, set_learning_rate, stoich_conditioning)

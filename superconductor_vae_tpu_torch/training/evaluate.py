@@ -2,7 +2,9 @@
 
 ``eval_batch`` is the body of the JAX package's jitted ``eval_batch``:
 encoder, decoder memory, greedy KV-cache generation with the decode gates
-and early exit, then the teacher-forced forward for TF-exact.
+and early exit (or, given n-gram draft tables, speculative decoding:
+generation/speculative.py, pure greedy), then the teacher-forced forward
+for TF-exact.
 ``evaluate_autoregressive`` runs it over a dataset and scores true-AR and
 TF exact match, Tc error, the SC head and the family head as the JAX
 function does.
@@ -17,6 +19,7 @@ import torch
 
 from ..data.pipeline import DatasetArrays
 from ..generation import GenerationConfig, generate_with_kv_cache
+from ..generation.speculative import _as_draft_tables, speculative_generate
 from ..tokenizer import EOS_ID, PAD_ID, FractionAwareTokenizer
 from .config import TrainConfig
 from .train_step import stoich_conditioning
@@ -58,13 +61,21 @@ def eval_generation_config(tcfg: TrainConfig, max_len: int) -> GenerationConfig:
         early_exit=True)
 
 
+SPECULATIVE_K = 4                   # drafted tokens a chunk, as the JAX eval
+
+
 @torch.inference_mode()
 def eval_batch(encoder, decoder, batch: Dict[str, torch.Tensor],
                gcfg: GenerationConfig,
-               type_masks: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+               type_masks: Optional[torch.Tensor] = None,
+               speculative_tables: Optional[Dict[str, torch.Tensor]] = None
+               ) -> Dict[str, torch.Tensor]:
     """One eval batch: returns the generated tokens [B, max_len-1], the
     TF argmax ``tf_pred`` [B, max_len-1], ``tc_pred``, ``sc_pred``,
     ``z_norm``, ``family_composed_14`` and the generation's ``margin``.
+    With ``speculative_tables`` the tokens come from speculative decoding
+    (k = 4, pure greedy: ``gcfg``'s gates do not apply), which needs a
+    decoder with ``pallas_decode=False``.
 
     ``batch`` holds element_indices / element_fractions / element_mask
     [B, 12], magpie [B, magpie_dim], tc [B] and tokens [B, max_len]."""
@@ -72,8 +83,12 @@ def eval_batch(encoder, decoder, batch: Dict[str, torch.Tensor],
                       batch['element_mask'], batch['magpie'], batch['tc'])
     heads_vec = encoder.heads_pred_for_decoder(enc_out)
     stoich = stoich_conditioning(batch)
-    gen = generate_with_kv_cache(decoder, enc_out['z'], stoich, heads_vec,
-                                 None, gcfg, type_masks=type_masks)
+    if speculative_tables is not None:
+        gen = speculative_generate(decoder, enc_out['z'], stoich, heads_vec,
+                                   speculative_tables, k=SPECULATIVE_K)
+    else:
+        gen = generate_with_kv_cache(decoder, enc_out['z'], stoich, heads_vec,
+                                     None, gcfg, type_masks=type_masks)
     dec_out = decoder(enc_out['z'], batch['tokens'], stoich, heads_vec)
     return {
         'generated': gen['tokens'],
@@ -111,12 +126,18 @@ def evaluate_autoregressive(
     indices of the evaluated rows, and ``per_sample_margin`` each row's
     smallest gap between the two largest gated logits over its decode
     steps (how near its stream came to a tie; the JAX function has no such
-    key).  The speculative decode (A.13) is not ported yet."""
-    if speculative_tables is not None:
-        raise NotImplementedError('speculative decoding is not ported yet (A.13)')
+    key).
+
+    ``speculative_tables``: n-gram draft tables (models/draft.py
+    ``build_ngram_draft``, or a bare bigram table) switch the decode to
+    speculative chunk verification (``eval_batch``).  That path is pure
+    greedy, with no stop boost, hard stop or type mask, so its exact match
+    can differ from the gated scan's at the margin, as in JAX."""
     gcfg = eval_generation_config(tcfg, decoder.cfg.max_len)
     type_masks = luts['type_masks'] if tcfg.use_type_masking_ar else None
     device = next(encoder.parameters()).device
+    if speculative_tables is not None:
+        speculative_tables = _as_draft_tables(speculative_tables, device)
 
     if sample_indices is None:
         sample_indices = np.arange(len(ds))
@@ -138,7 +159,7 @@ def evaluate_autoregressive(
         pad_n = batch_size - len(idx)
         full_idx = np.concatenate([idx, np.zeros(pad_n, np.int64)]) if pad_n else idx
         out = eval_batch(encoder, decoder, _to_device(ds.batch(full_idx), device), gcfg,
-                         type_masks=type_masks)
+                         type_masks=type_masks, speculative_tables=speculative_tables)
         out = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
                for k, v in out.items()}
         m = len(idx)

@@ -24,8 +24,7 @@ Differences from the JAX loop:
   weights to the sampler, so a resumed run repeats an uninterrupted one
   exactly (JAX's per-step key stream and those states are not saved);
 - options whose parts are not ported raise ``NotImplementedError`` naming
-  their slice: ``phase2_enabled`` (A.14), ``debug_numerics`` (A.16), and
-  those ``check_supported`` refuses.
+  their slice: ``phase2_enabled`` (A.14) and ``debug_numerics`` (A.16).
 """
 
 from __future__ import annotations
@@ -57,7 +56,8 @@ from .mastery_sampler import CurriculumScheduler, MasteryTracker
 from .schedulers import (DropDetector, EntropyManager, LossSkipScheduler,
                          PerPositionEntropyWeighter, PhysZController, RLController,
                          TcBinTracker, cosine_lr, curriculum_weights, teacher_forcing_ratio)
-from .train_step import (build_luts, check_supported, create_train_state, default_dyn,
+from .soft_token import SoftTokenSchedule, soft_token_ratio
+from .train_step import (build_luts, compute_dtype, create_train_state, default_dyn,
                          make_epoch_runner, make_train_step, set_learning_rate)
 
 CSV_FIELDS = ['epoch', 'total', 'formula_loss', 'tc_loss', 'exact_match',
@@ -70,14 +70,15 @@ _AUG_KEYS = ('tokens', 'element_indices', 'element_fractions', 'element_mask')
 
 def check_loop_supported(tcfg: TrainConfig) -> None:
     """Raises ``NotImplementedError`` for the loop's options that are not
-    ported, naming their slices; then ``check_supported``'s refusals."""
+    ported, naming their slices, and ``ValueError`` for a compute dtype
+    other than float32 or bfloat16."""
     if tcfg.phase2_enabled:
         raise NotImplementedError('train: phase2_enabled (the self-supervised phase 2: '
                                   'the phase-2 slice, A.14) is not ported yet')
     if tcfg.debug_numerics:
         raise NotImplementedError('train: debug_numerics (the NaN/Inf sanitizer: the '
                                   'utilities slice, A.16) is not ported yet')
-    check_supported(tcfg)
+    compute_dtype(tcfg)
 
 
 def _read_sums(sums: Dict[str, torch.Tensor], n_batches: int) -> Dict[str, float]:
@@ -331,6 +332,13 @@ def train(
                                       0.011),
                 'entropy_weight': ent_w,
             })
+            if tcfg.soft_token_enabled:
+                dyn['soft_ratio'] = soft_token_ratio(epoch, SoftTokenSchedule(
+                    n_epochs=tcfg.soft_token_epochs,
+                    start_ratio=tcfg.soft_token_start_ratio,
+                    end_ratio=tcfg.soft_token_end_ratio,
+                    warmup_epochs=tcfg.soft_token_warmup_epochs,
+                    schedule=tcfg.soft_token_schedule))
             if pos_weighter is not None:
                 dyn['entropy_pos_w'] = torch.as_tensor(pos_weighter.weights(),
                                                        dtype=torch.float32, device=device)

@@ -41,8 +41,10 @@ Differences from the JAX step, all in how and none in what it computes:
 - the round trip's rollout runs under ``no_grad`` (JAX traces it under
   ``value_and_grad``, which raises with the Pallas decode kernel; its
   gradient is zero either way: ops/round_trip.py).
-``soft_token_enabled``, whose path is not ported yet, raises
-``NotImplementedError`` (``check_supported``).
+With ``soft_token_enabled`` the decoder's forward is the two-pass
+soft-token forward (training/soft_token.py) at ``dyn['soft_ratio']``,
+whose second pass replays the first's dropout masks, as JAX's two passes
+share one ``rngs``.
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ from ..ops.theory import theory_loss
 from ..tokenizer import FractionAwareTokenizer
 from ..utils.device import resolve_device
 from .config import TrainConfig
+from .soft_token import soft_token_forward
 
 # optax.adamw's defaults
 ADAM_BETAS = (0.9, 0.999)
@@ -108,16 +111,6 @@ def _f32(out: Dict[str, Optional[torch.Tensor]]) -> Dict[str, Optional[torch.Ten
     float32 (the identity on float32 outputs)."""
     return {k: v.float() if isinstance(v, torch.Tensor) and v.is_floating_point() else v
             for k, v in out.items()}
-
-
-def check_supported(tcfg: TrainConfig) -> None:
-    """Raises ``NotImplementedError`` for a config whose step needs a part
-    of the JAX step that is not ported yet, naming the part, and
-    ``ValueError`` for a compute dtype other than float32 or bfloat16."""
-    compute_dtype(tcfg)
-    if tcfg.soft_token_enabled:
-        raise NotImplementedError('train step: not ported yet: soft_token_enabled '
-                                  '(soft-token sampling: the decoding-variants slice)')
 
 
 class MultiSteps:
@@ -276,9 +269,8 @@ def create_train_state(mcfg: ModelConfig, tcfg: TrainConfig, seed: int = 0,
     ``hungarian_enabled``) the set decoder on ``device``, with float32
     weights drawn from ``seed`` in that order (models/init.py), the models
     computing in ``tcfg.compute_dtype``, and fresh optimizers."""
-    check_supported(tcfg)
-    device = resolve_device(device)
     dtype = compute_dtype(tcfg)
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     encoder = init_params(MaterialsEncoder(mcfg, device=device, dtype=dtype), gen)
     decoder = init_params(FormulaDecoder(mcfg, device=device, dtype=dtype), gen)
@@ -332,7 +324,14 @@ def train_loss(state: TrainState, tcfg: TrainConfig, luts: Mapping[str, torch.Te
                   batch['element_mask'], batch['magpie'], batch['tc'])
     heads_vec = enc.heads_pred_for_decoder(enc_out)
     stoich = stoich_conditioning(batch)
-    dec_out = dec(enc_out['z'], batch['tokens'], stoich, heads_vec)
+    if tcfg.soft_token_enabled:
+        # soft-token scheduled sampling: the second pass sees
+        # probability-weighted embedding mixtures at the epoch's ratio
+        dec_out = soft_token_forward(dec, enc_out['z'], batch['tokens'], stoich, heads_vec,
+                                     dyn['soft_ratio'],
+                                     temperature=tcfg.soft_token_temperature)
+    else:
+        dec_out = dec(enc_out['z'], batch['tokens'], stoich, heads_vec)
     # the loss boundary; heads_vec stays in the compute dtype, as in JAX
     enc_out, dec_out = _f32(enc_out), _f32(dec_out)
     rl = reward_mean = None
@@ -415,8 +414,9 @@ def make_train_step(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
     ``rl_enabled`` the step adds the SCST or RLOO loss (``tcfg.rl.method``)
     at ``dyn['rl_w']``, and its mean reward and ``reward_var`` to the
     metrics.  ``state.step`` counts steps (mini-steps under
-    accumulation)."""
-    check_supported(tcfg)
+    accumulation).  A compute dtype other than float32 or bfloat16 raises
+    ``ValueError``."""
+    compute_dtype(tcfg)
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor], seed: int,
              dyn: Mapping[str, float]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:

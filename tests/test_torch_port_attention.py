@@ -13,6 +13,8 @@ from superconductor_vae_tpu.ops.attention import causal_mask as jax_causal
 from superconductor_vae_tpu.ops.attention import mha_attention as jax_mha
 from superconductor_vae_tpu_torch.ops.attention import causal_mask, mha_attention
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
+
 
 def test_causal_mask_matches_jax():
     np.testing.assert_array_equal(causal_mask(7).numpy(), np.asarray(jax_causal(7)))

@@ -12,10 +12,12 @@ the CPU at tiny widths.
 - SCST's and RLOO's re-score runs under ``torch.utils.checkpoint``; loss
   and every gradient are bit-equal to the run without it.
 - ``python -m superconductor_vae_tpu_torch.bench --quick`` prints bench.py's
-  keys; ``--spec`` raises.
+  keys, and with ``--spec`` those of bench.py's speculative probe, its
+  streams equal to the plain greedy scan's.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -32,6 +34,8 @@ from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
 from superconductor_vae_tpu_torch.training import (
     TrainConfig, build_luts, create_train_state, default_dyn, make_train_step)
 from superconductor_vae_tpu_torch.training.evaluate import _to_device
+
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 
 CFG = dataclasses.replace(tiny_test_config(), latent_dim=512, dropout=0.0)
 TCFG = dict(use_physics_z=True, magpie_proj_learnable=True,
@@ -173,6 +177,14 @@ def test_bench_quick_prints_bench_py_keys(capsys):
     assert all(1 <= s <= 15 for s in out['rl_decode_steps'] + out['gen_decode_steps'])
 
 
-def test_bench_spec_is_refused():
-    with pytest.raises(NotImplementedError, match='A.13'):
-        bench.main(['--quick', '--spec'])
+def test_bench_quick_spec_prints_bench_py_keys(capsys):
+    out = bench.main(['--quick', '--spec', '--steps', '1'])
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == out
+    assert out['metric'] == 'speculative_generation_formulas_per_s_per_chip'
+    for key in ('value', 'unit', 'vs_baseline', 'acceptance_rate', 'speedup_vs_plain_scan',
+                'compute_dtype', 'decode_route', 'card', 'power_limit', 'device'):
+        assert key in out, key
+    assert out['rows_equal_to_plain_scan'] == 1.0 and out['device'] == 'cpu'     # float32
+    assert out['rows_parted_beyond_ties'] == 0 and out['tie'] == 1e-4
+    assert 0 < out['acceptance_rate'] <= 1 and out['n_iterations'] <= out['plain_steps']

@@ -49,6 +49,7 @@ from superconductor_vae_tpu_torch.models import tiny_test_config
 from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
 from superconductor_vae_tpu_torch.training import (
     TrainConfig, TrainState, build_luts, default_dyn, make_train_step)
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 from test_torch_port_train_step import _batches, _to_torch
 from torch_port_common import batch, jax_config, param_trees, to_torch
 

@@ -23,6 +23,8 @@ from superconductor_vae_tpu_torch.checkpoint import params_from_jax
 from superconductor_vae_tpu_torch.data import composition_slots, read_csv_rows
 from superconductor_vae_tpu_torch.models import config_from_meta
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 

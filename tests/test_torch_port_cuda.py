@@ -3,8 +3,10 @@ decode-step attention; K2, the flash-attention forward), one train step
 on the card against the same step on the CPU (without and with the set
 decoder and the round trip, whose rollout runs K1), the dataset eval through
 K1 against the plain attention path, K1's bf16 instance at the bench's
-shapes and in a bf16 greedy rollout against the plain path, and train() on
-the card with K1 in its eval and RL rollouts and a checkpoint round trip.
+shapes and in a bf16 greedy rollout against the plain path, train() on
+the card with K1 in its eval and RL rollouts and a checkpoint round trip,
+the bench's --spec probe, and the soft-token passes' shared dropout masks
+through the card's generator.
 
 Needs an NVIDIA GPU and nvcc, and imports no JAX, so that it runs on a
 machine with the card only:
@@ -33,6 +35,8 @@ from superconductor_vae_tpu_torch.ops.decode_attention import (
     decode_step_attention, decode_step_attention_ref)
 from superconductor_vae_tpu_torch.ops.fused_attention import (
     flash_attention, flash_attention_ref, fused_attention)
+
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 
 pytestmark = pytest.mark.cuda
 CSV = Path(__file__).resolve().parents[1] / 'data/processed/jarvis_merged.csv.gz'
@@ -503,3 +507,44 @@ def test_default_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
     for r in torch.nonzero(differ)[:, 0].tolist():
         a, b = cost[r, rows, perm_c[r]].sum(), cost[r, rows, perm_h[r]].sum()
         assert abs(a - b) <= 1e-5, (r, a, b)
+
+
+def test_bench_spec_probe_on_the_card(cuda):
+    """The bench's --spec probe at the quick model on the card: the
+    speculative streams (plain attention, on the twin of the state's
+    decoder) equal the plain greedy scan's through K1 up to each row's EOS,
+    and the self-consistent draft is accepted."""
+    from superconductor_vae_tpu_torch import bench
+    s = bench.build(quick=True, device='cuda')
+    before = decode_step_attention.launches
+    r = bench.spec_probe(s, calls=1)
+    assert decode_step_attention.launches > before            # the plain side's K1
+    assert r['rows_equal'] == 1.0 and r['acceptance_rate'] > 0         # float32
+    assert r['n_iterations'] < r['plain_steps']
+
+
+def test_soft_token_passes_share_dropout_masks_on_the_card(cuda):
+    """The card's generator is replayed for the second soft-token pass: in
+    train mode at ratio 0 the soft-token forward equals one teacher-forced
+    forward from the same seed, bit for bit, and leaves the card's stream
+    where that forward leaves it."""
+    import dataclasses
+    from superconductor_vae_tpu_torch.models import FormulaDecoder, init_params, tiny_test_config
+    from superconductor_vae_tpu_torch.training.soft_token import soft_token_forward
+    cfg = dataclasses.replace(tiny_test_config(), dropout=0.3)
+    dec = init_params(FormulaDecoder(cfg, device=cuda), torch.Generator().manual_seed(0))
+    dec.train()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    args = (torch.randn(4, cfg.latent_dim, generator=g, device=cuda),
+            torch.randint(0, cfg.vocab_size, (4, cfg.max_len), generator=g, device=cuda),
+            torch.randn(4, cfg.stoich_input_dim, generator=g, device=cuda),
+            torch.randn(4, cfg.heads_input_dim, generator=g, device=cuda))
+    with torch.no_grad():
+        torch.manual_seed(7)
+        tf = dec(*args)
+        after = torch.cuda.get_rng_state(cuda)
+        torch.manual_seed(7)
+        soft = soft_token_forward(dec, *args, 0.0)
+    assert torch.equal(torch.cuda.get_rng_state(cuda), after)
+    for k in ('logits', 'stop_logits', 'type_logits', 'site_dup_logits'):
+        assert torch.equal(soft[k], tf[k]), k

@@ -15,6 +15,8 @@ from superconductor_vae_tpu_torch.data import (
     composition_slots, parse_formula_composition, read_csv_rows)
 from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
+
 CSV = Path(__file__).resolve().parents[1] / 'data/processed/jarvis_merged.csv.gz'
 N = 64
 

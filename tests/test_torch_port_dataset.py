@@ -42,6 +42,7 @@ from superconductor_vae_tpu_torch.scripts import evaluate as cli
 from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
 from superconductor_vae_tpu_torch.training import (
     build_luts, eval_train_config, evaluate_autoregressive)
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 from torch_port_common import export_params_npz, jax_config, param_trees, port_models
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -251,16 +252,25 @@ def test_ckpt_skew_transform_on_committed_metas():
 
 
 def test_unported_options_raise():
+    """The magpie bridge (A.16) is refused; the speculative decode (A.13)
+    runs: a bare bigram table, at tiny width, gives streams that agree with
+    the plain greedy scan up to each row's EOS."""
     with pytest.raises(NotImplementedError, match='A.16'):
         pipeline.load_dataset(CSV, magpie_bridge=ROOT / 'data/magpie_bridge.npz')
     cfg = tiny_test_config()
     enc, dec = port_models(cfg, param_trees(cfg))
-    with pytest.raises(NotImplementedError, match='A.13'):
-        evaluate_autoregressive(enc, dec, synthetic_dataset(n=4, magpie_dim=16),
-                                eval_train_config(cfg.max_len), {},
-                                speculative_tables={'bigram': torch.zeros(1)})
-    with pytest.raises(SystemExit):
-        cli.main(['--params', 'x.npz', '--meta', 'meta.json', '--speculative'])
+    ds = synthetic_dataset(n=4, max_len=cfg.max_len, magpie_dim=16)
+    luts = build_luts(default_tokenizer(max_len=cfg.max_len), device='cpu')
+    gates_off = dict(stop_boost=0.0, hard_stop_threshold=0.0, site_dup_threshold=0.0,
+                     use_type_masking_ar=False)
+    kw = dict(tcfg=eval_train_config(cfg.max_len, gates_off), luts=luts, batch_size=4,
+              collect_errors=True, tokenizer=default_tokenizer(max_len=cfg.max_len))
+    spec = evaluate_autoregressive(enc, dec, ds, speculative_tables=np.full(
+        cfg.vocab_size, 7, np.int32), **kw)
+    plain = evaluate_autoregressive(enc, dec, ds, **kw)
+    assert spec['n_evaluated'] == plain['n_evaluated'] == len(spec['error_records']) == 4
+    assert [e['generated'] for e in spec['error_records']] == [
+        e['generated'] for e in plain['error_records']]
 
 
 # -- the eval -----------------------------------------------------------------

@@ -27,6 +27,8 @@ from superconductor_vae_tpu.ops.pallas_attention import (
 from superconductor_vae_tpu_torch.ops import fused_attention as port
 from superconductor_vae_tpu_torch.ops.attention import causal_mask, mha_attention
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2 ** -6, atol=2e-3)
 

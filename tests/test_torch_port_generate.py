@@ -35,6 +35,7 @@ from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
 from superconductor_vae_tpu_torch.training import (
     build_luts, eval_batch, eval_generation_config, eval_train_config)
 from superconductor_vae_tpu_torch.training.evaluate import _exact_match
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 from torch_port_common import batch, jax_config, param_trees, port_models, to_torch
 
 META = json.loads((Path(__file__).resolve().parents[1]

@@ -19,6 +19,8 @@ from superconductor_vae_tpu.ops.pallas_decode import (
     decode_step_attention as jax_kernel, decode_step_attention_xla)
 from superconductor_vae_tpu_torch.ops import decode_attention as port
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
+
 B, H, T, DH = 4, 8, 30, 72
 
 

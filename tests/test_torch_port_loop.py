@@ -47,6 +47,7 @@ from superconductor_vae_tpu_torch.training import (
     TrainConfig, TrainState, build_luts, create_train_state, default_dyn, make_epoch_runner,
     make_train_step, train)
 from superconductor_vae_tpu_torch.training.evaluate import _to_device
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 from test_torch_port_train_step import _adam_states, _leaves, _port_moments, _tree_close
 from torch_port_common import jax_config
 
@@ -58,17 +59,6 @@ _LOOP = dict(batch_size=16, max_formula_len=16, use_physics_z=False,
 # the set decoder as narrow as the tiny model
 _DEFAULTS = dict(hungarian_enabled=True, use_round_trip=True, hungarian_d_model=32,
                  hungarian_num_layers=2, hungarian_dim_feedforward=64)
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_thread():
-    """One intra-op thread: these tiny models gain nothing from more, and
-    the suite runs in several processes at once, where more threads each
-    oversubscribe the cores and slow every process."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _quiet(*a, **k):
@@ -458,8 +448,7 @@ def test_drop_rollback_restores_the_best_checkpoint(tmp_path, monkeypatch, one_e
 
 
 @pytest.mark.parametrize('option,slice_name', [
-    (dict(phase2_enabled=True), 'A.14'), (dict(debug_numerics=True), 'A.16'),
-    (dict(soft_token_enabled=True), 'decoding-variants slice')])
+    (dict(phase2_enabled=True), 'A.14'), (dict(debug_numerics=True), 'A.16')])
 def test_unported_options_raise(tmp_path, option, slice_name):
     tc = TrainConfig(**dict(_LOOP, **option))
     with pytest.raises(NotImplementedError, match=slice_name):
@@ -476,16 +465,18 @@ def test_train_defaults_to_the_card():
 
 def test_cli_runs_on_the_cpu(tmp_path):
     """The CLI at TrainConfig()'s defaults (the set decoder and the round
-    trip on), with no --set."""
+    trip on), with no --set, and with soft tokens on through --set."""
     out = cli.main(['--cpu', '--synthetic', '--tiny', '--epochs', '1', '--limit', '32',
                     '--batch-size', '16', '--output', str(tmp_path)])
     assert len(out['history']) == 1 and np.isfinite(out['history'][0]['total'])
     assert (tmp_path / 'training_metrics.csv').exists()
     assert next(out['encoder'].parameters()).device.type == 'cpu'
     assert out['state'].set_decoder is not None
-    with pytest.raises(NotImplementedError, match='decoding-variants slice'):
-        cli.main(['--cpu', '--synthetic', '--tiny', '--epochs', '1', '--output',
-                  str(tmp_path / 'refused'), '--set', 'soft_token_enabled=true'])
+    soft = cli.main(['--cpu', '--synthetic', '--tiny', '--epochs', '1', '--limit', '32',
+                     '--batch-size', '16', '--output', str(tmp_path / 'soft'), '--set',
+                     'soft_token_enabled=true', '--set', 'soft_token_start_ratio=0.3'])
+    assert len(soft['history']) == 1 and np.isfinite(soft['history'][0]['total'])
+    assert soft['history'][0]['total'] != out['history'][0]['total']
     with pytest.raises(SystemExit):
         cli.main(['--set', 'no_such_field=1'])
 

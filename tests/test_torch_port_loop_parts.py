@@ -70,6 +70,7 @@ from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
 from superconductor_vae_tpu_torch.training import (
     MultiSteps, TrainConfig, build_luts, default_dyn, make_train_step, schedulers)
 from superconductor_vae_tpu_torch.training import mastery_sampler
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 from test_torch_port_losses import GRAD_KEYS, TOK, _batch_and_outputs, _torch
 from test_torch_port_train_step import (
     MET_TOL, TCFG, _TINY, _adam_states, _leaves, _port_moments, _port_params, _port_state,
@@ -79,17 +80,6 @@ from torch_port_common import jax_config, param_trees, port_models
 ROOT = Path(__file__).resolve().parents[1]
 CORPUS = ROOT / 'data/processed/jarvis_merged.csv.gz'
 TOL = dict(rtol=2e-5, atol=1e-6)
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_thread():
-    """One intra-op thread: these tiny models gain nothing from more, and
-    the suite runs in several processes at once, where more threads each
-    oversubscribe the cores and slow every process."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _close(got, want, **tol):

@@ -39,6 +39,8 @@ from superconductor_vae_tpu_torch.ops import constraints, losses, physics_z_loss
 from superconductor_vae_tpu_torch.ops import token_stats
 from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
+
 ROOT = Path(__file__).resolve().parents[1]
 CSV = ROOT / 'data/processed/jarvis_merged.csv.gz'
 TOL = dict(rtol=2e-5, atol=1e-6)

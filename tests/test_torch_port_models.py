@@ -18,6 +18,7 @@ import torch
 from superconductor_vae_tpu.models import FormulaDecoder as JaxDecoder
 from superconductor_vae_tpu.models import MaterialsEncoder as JaxEncoder
 from superconductor_vae_tpu_torch.models import tiny_test_config
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 from torch_port_common import batch, jax_config, param_trees, port_models, to_torch
 
 TOL = dict(rtol=2e-5, atol=2e-5)

@@ -53,6 +53,7 @@ from superconductor_vae_tpu_torch.tokenizer import (
 from superconductor_vae_tpu_torch.training import (
     EntropyManager, PerPositionEntropyWeighter, RLController, TrainConfig, TrainState,
     build_luts, default_dyn, make_train_step)
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 from test_torch_port_train_step import (
     TCFG, _batches, _port_moments, _port_params, _port_state, _to_torch,
     check_moments_and_updates)

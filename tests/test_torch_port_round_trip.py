@@ -48,6 +48,7 @@ from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
 from superconductor_vae_tpu_torch.training import (
     TrainConfig, build_luts, default_dyn, make_epoch_runner, make_train_step,
     stoich_conditioning)
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 from test_torch_port_train_step import (
     MET_TOL, _batches, _leaves, _port_moments, _port_params, _port_state, _to_torch,
     check_moments_and_updates)

@@ -30,6 +30,7 @@ from superconductor_vae_tpu_torch.checkpoint import set_decoder_from_jax
 from superconductor_vae_tpu_torch.models import SetFormulaDecoder
 from superconductor_vae_tpu_torch.ops.hungarian import (
     PAD_COST, hungarian_assignment, hungarian_matching_loss)
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 from test_torch_port_bf16 import held
 from torch_port_common import set_param_tree
 

@@ -17,6 +17,8 @@ from superconductor_vae_tpu_torch.models import (
 from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
 from superconductor_vae_tpu_torch.training import build_luts
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / 'superconductor_vae_tpu_torch').rglob('*.py')) + [
     ROOT / 'chip_smoke.py']

@@ -68,6 +68,7 @@ from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
 from superconductor_vae_tpu_torch.training import (
     TrainConfig, TrainState, build_luts, clip_by_global_norm_, create_train_state,
     default_dyn, make_train_step)
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 from torch_port_common import jax_config, param_trees
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -368,14 +369,6 @@ def test_train_config_mirrors_jax():
     want = jts.default_dyn(JaxTrainConfig())                 # float32 arrays
     assert {k: np.float32(v) for k, v in default_dyn(TrainConfig()).items()} == {
         k: np.float32(v) for k, v in want.items()}
-
-
-@pytest.mark.parametrize('option', [dict(soft_token_enabled=True)])
-def test_unported_options_raise(option):
-    tc = TrainConfig(**TCFG)
-    luts = build_luts(default_tokenizer(max_len=16), 'cpu')
-    with pytest.raises(NotImplementedError, match='slice'):
-        make_train_step(dataclasses.replace(tc, **option), luts)
 
 
 def test_default_train_config_builds_and_runs_a_step():
