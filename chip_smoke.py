@@ -172,6 +172,27 @@
    under torch.cuda.set_sync_debug_mode: no operation of the epoch makes
    the host wait for the card, and the one read of its sums does; then
    runner and per-batch epochs timed in turns.
+12b. Phase-2 phase: training/self_supervised.py at run4's widths with the
+   e2e phase's weights and the K1 decoder, float32 unless a step says
+   otherwise ('phase2' lines).  (a) K1 against its plain version at Phase
+   2's rollout shapes, B=32 and B=128 (T=30, H=8, Dh=72), at every
+   position 0-28 in both dtypes, caches compared exactly, and timed (mean
+   over positions) beside the plain version, SDPA and the bound; (b) the
+   z-cache of the e2e phase's 1,024 rows and the coverage fit (which
+   clustering ran: k-means where sklearn is absent); (c) one sub-epoch of
+   64 samples with the real validators: K1 launched exactly 696 times (12
+   layers x 29 steps x 2 rollouts), K2 never, the seconds of sampling,
+   rollouts, filter and update; (d) one of 256 samples with permissive
+   validators: 696 launches, the four losses finite, both models changed;
+   (e) that update on 16 of its rows card against CPU from the same
+   weights in train mode (losses 1e-4 relative, AdamW moments and updates
+   1e-3) and a greedy rollout of 8 rows card against CPU; (f) one
+   sub-epoch in bf16 compute: K1's bf16 instance 696 times, finite losses;
+   (g) train() with Phase 2 at every epoch, 2 epochs of 512 rows: one
+   phase2_log.jsonl line an epoch, K1 = 12 x eval decode steps + 696 a
+   sub-epoch; (h) the port's phase2_standalone CLI on the loop phase's
+   checkpoint (2 sub-epochs of 64, --pallas-decode, --save-checkpoint),
+   whose saved checkpoint loads back bit for bit.
 13. Prints the kernels' JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -184,6 +205,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -927,6 +949,19 @@ def fix_rollout_heads(torch, decoder):
     return decoder
 
 
+def seeded_models(torch, dev, cfg, dtype=None):
+    """The encoder and the decoder at ``cfg`` with random weights from SEED
+    (the encoder drawn first) and the decoder's heads fixed
+    (``fix_rollout_heads``), in eval mode: the e2e phase's models, which
+    the Phase-2 phase builds again."""
+    from superconductor_vae_tpu_torch.models import FormulaDecoder, MaterialsEncoder, init_params
+    kw = dict(device=dev, dtype=dtype or torch.float32)
+    gen = torch.Generator().manual_seed(SEED)
+    encoder = init_params(MaterialsEncoder(cfg, **kw), gen).eval()
+    decoder = fix_rollout_heads(torch, init_params(FormulaDecoder(cfg, **kw), gen).eval())
+    return encoder, decoder
+
+
 def e2e_phase(torch, dev, ds, batches):
     """The eval path on the data phase's batches, through K1 and through the
     plain attention path, then 8 rows on the CPU, and one batch under the
@@ -934,7 +969,7 @@ def e2e_phase(torch, dev, ds, batches):
     true-AR exact match of each row."""
     import numpy as np
     from superconductor_vae_tpu_torch.models import (
-        FormulaDecoder, MaterialsEncoder, config_from_meta, init_params)
+        FormulaDecoder, MaterialsEncoder, config_from_meta)
     from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
     from superconductor_vae_tpu_torch.tokenizer import EOS_ID, default_tokenizer
     from superconductor_vae_tpu_torch.training import (
@@ -948,9 +983,7 @@ def e2e_phase(torch, dev, ds, batches):
     print(f'e2e: run4 widths {dataclasses.asdict(cfg)}')
     print(f'e2e: {gcfg}')
 
-    gen = torch.Generator().manual_seed(SEED)
-    encoder = init_params(MaterialsEncoder(cfg, device=dev), gen).eval()
-    decoder = fix_rollout_heads(torch, init_params(FormulaDecoder(cfg, device=dev), gen).eval())
+    encoder, decoder = seeded_models(torch, dev, cfg)
     plain_cfg = dataclasses.replace(cfg, pallas_decode=False)
     decoder_plain = FormulaDecoder(plain_cfg, device=dev).eval()
     decoder_plain.load_state_dict(decoder.state_dict())
@@ -2542,6 +2575,10 @@ def loop_phase(torch, dev, ds, step_rate):
           f'resume started at epoch {saved_meta["epoch"] + 1}')
     state = resumed['state']
     del first, resumed, restored, live, st
+    # the Phase-2 phase's standalone CLI starts from this checkpoint
+    shutil.rmtree(PHASE2_DIR, ignore_errors=True)
+    PHASE2_DIR.mkdir(parents=True)
+    os.replace(LOOP_DIR / 'checkpoints' / last, PHASE2_DIR / 'loop_checkpoint')
     shutil.rmtree(LOOP_DIR / 'checkpoints')
     torch.cuda.empty_cache()
     t_parts['(a)-(c)'] = time.perf_counter() - t_phase - sum(t_parts.values())
@@ -2675,6 +2712,333 @@ def epoch_runner_check(torch, dev, cfg, sub, st, step_rate):
     torch.cuda.empty_cache()
 
 
+# -- Phase-2 phase --------------------------------------------------------------
+
+# Phase 2's rollouts: n_samples / 2 rows each, B=32 at TrainConfig's
+# phase2_n_samples (64) and B=128 at the standalone CLI's default (256)
+P2_K1_B = (32, 128)
+P2_ROWS = BATCH * N_BATCHES        # the e2e phase's rows: the z-cache
+PHASE2_DIR = ROOT / 'outputs' / 'chip_smoke_phase2'
+P2_TRAIN_ROWS = 512
+
+
+def _p2_params(p2):
+    """{group: {name: tensor}} of a Phase-2 epoch's two models, cloned."""
+    return {name: {n: p.detach().clone() for n, p in m.named_parameters()}
+            for name, m in (('encoder', p2.encoder), ('decoder', p2.decoder))}
+
+
+def _p2_after(p2):
+    """{group: {name: (param, exp_avg, exp_avg_sq)}} after an update."""
+    return {name: {n: (p.detach().clone(), opt.state[p]['exp_avg'].clone(),
+                       opt.state[p]['exp_avg_sq'].clone())
+                   for n, p in m.named_parameters()}
+            for name, m, opt in (('encoder', p2.encoder, p2._enc_opt),
+                                 ('decoder', p2.decoder, p2._dec_opt))}
+
+
+def phase2_phase(torch, dev, ds):
+    """Phase 2 (training/self_supervised.py) at run4's widths with the e2e
+    phase's weights and the K1 decoder, float32 unless a step says
+    otherwise: (a) K1 at Phase 2's shapes against its plain version and
+    timed; (b) the z-cache of the e2e rows and the coverage fit; (c) one
+    sub-epoch of 64 samples with the real validators; (d) one of 256 with
+    the permissive ones, so that the update runs; (e) that update on 16 of
+    its rows, card against CPU, and a greedy rollout of 8 rows; (f) one
+    sub-epoch in bf16 compute; (g) train() with Phase 2 at every epoch;
+    (h) the standalone CLI on the loop phase's checkpoint.  Returns K1's
+    float32 launches on the main paths (c), (d), (g) and (h), and its
+    bfloat16 launches in (f)."""
+    import math
+    import shutil
+    from types import SimpleNamespace
+    import numpy as np
+    from superconductor_vae_tpu_torch.generation.latent_analyzer import LatentSpaceAnalyzer
+    from superconductor_vae_tpu_torch.models import config_from_meta
+    from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+    from superconductor_vae_tpu_torch.ops.fused_attention import flash_attention
+    from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
+    from superconductor_vae_tpu_torch.training import (
+        Phase2Config, SelfSupervisedEpoch, build_luts)
+
+    t_phase = time.perf_counter()
+    t_parts = {}
+    meta = json.loads(META.read_text())
+    cfg = config_from_meta(meta['model_config'], pallas_decode=True)
+    layers, steps = cfg.num_layers, cfg.max_len - 1
+    per_sub_epoch = 2 * layers * steps                       # two rollouts, no early exit
+    check(per_sub_epoch == 696, f'phase2: {per_sub_epoch} K1 launches a sub-epoch')
+
+    # (a) K1 at B=32 and B=128, every position, both dtypes; then timed
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for name, dtype in (('float32', torch.float32), ('bfloat16', torch.bfloat16)):
+        for b in P2_K1_B:
+            worst = max(k1_held(torch, gen, b, cfg.nhead, cfg.max_len, cfg.head_dim, dtype, p)
+                        for p in range(steps))
+            print(f'phase2 (a): K1 {name} B={b} H={cfg.nhead} T={cfg.max_len} '
+                  f'Dh={cfg.head_dim} positions 0..{steps - 1}: max_abs_err={worst:.3e} '
+                  f'(tol {K1_TOL[name]}) caches_equal=True')
+            k1_position_means(torch, gen, b, cfg.nhead, cfg.max_len, cfg.head_dim, dtype,
+                              'phase2 (a)')
+    t_parts['(a)'] = time.perf_counter() - t_phase
+
+    # (b) the z-cache of the e2e phase's rows, and the coverage fit
+    encoder, decoder = seeded_models(torch, dev, cfg)
+    tok = default_tokenizer(max_len=cfg.max_len)
+    luts = build_luts(tok, device=dev)
+    sub = ds.subset(np.arange(P2_ROWS))
+    t0 = time.perf_counter()
+    cache = LatentSpaceAnalyzer(encoder).build_cache(sub)
+    cache_s = time.perf_counter() - t0
+    p2 = SelfSupervisedEpoch(encoder, decoder, tok, sub, luts, cfg=Phase2Config(n_samples=64))
+    t0 = time.perf_counter()
+    p2.coverage.fit(cache.z, method='hdbscan')
+    fit_s = time.perf_counter() - t0
+    print(f'phase2 (b): z-cache of {len(sub)} rows {cache_s:.2f} s, z {cache.z.shape} '
+          f'finite {bool(np.isfinite(cache.z).all())}; coverage fit (hdbscan asked) ran '
+          f'{p2.coverage.fitted_with}: {len(p2.coverage.centers)} clusters in {fit_s:.2f} s')
+    check(np.isfinite(cache.z).all() and cache.z.shape == (P2_ROWS, cfg.latent_dim),
+          'phase2 (b): the z-cache')
+    check(p2.coverage.fitted_with in ('hdbscan', 'kmeans') and len(p2.coverage.centers) >= 4,
+          'phase2 (b): the coverage fit')
+    t_parts['(b)'] = time.perf_counter() - t_phase - sum(t_parts.values())
+
+    def sub_epoch(p2, n, what, generator, dtype=torch.float32):
+        """One sub-epoch through the main path, from train mode, K1 and K2
+        counts at 0 just before and read just after; prints its parts'
+        seconds."""
+        p2.encoder.train()
+        p2.decoder.train()
+        with Timings(torch, *((SelfSupervisedEpoch, m) for m in (
+                'sample_latents', 'rollouts', 'filter_candidates', 'update'))) as timings:
+            torch.cuda.synchronize()
+            decode_step_attention.launches = 0
+            decode_step_attention.launches_by_dtype[dtype] = 0
+            flash_attention.launches = 0
+            t0 = time.perf_counter()
+            out = p2.run(cache.z, generator, phase2_weight=0.1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = decode_step_attention.launches_by_dtype[dtype]
+            k2 = flash_attention.launches
+        m = out['metrics']
+        parts = {k: sum(s for s, _ in v) for k, v in timings.calls.items()}
+        print(f'phase2 {what}: {n} samples, {str(dtype).split(".")[1]}: n_sampled '
+              f'{m["n_sampled"]}, n_accepted {m["n_accepted"]}, n_novel {m["n_novel"]}, '
+              f'unique_rate {m["unique_rate"]:.3f}, explore_temp {m["explore_temp"]:.3f}; '
+              f'{wall:.3f} s: ' + ', '.join(f'{k} {parts.get(k, 0.0):.3f} s' for k in (
+                  'sample_latents', 'rollouts', 'filter_candidates', 'update'))
+              + ('' if 'update' in parts else ' (no update: nothing accepted)')
+              + f'; K1 launches {launches}, K2 launches {k2}')
+        check(m['n_sampled'] == n, f'phase2 {what}: n_sampled {m["n_sampled"]}')
+        check(launches == per_sub_epoch, f'phase2 {what}: K1 launches {launches} != 696')
+        check(k2 == 0, f'phase2 {what}: K2 launched {k2} times')
+        check(p2.encoder.training and p2.decoder.training,
+              f'phase2 {what}: the modules\' train modes were not given back')
+        return out, launches
+
+    generator = torch.Generator(device=dev).manual_seed(SEED)
+    # (c) 64 samples, the real validators
+    _, launches_c = sub_epoch(p2, 64, '(c)', generator)
+    t_parts['(c)'] = time.perf_counter() - t_phase - sum(t_parts.values())
+
+    # (d) 256 samples, the permissive validators: the update runs
+    accept = SimpleNamespace(validate=lambda f: SimpleNamespace(
+        is_valid=True, score=1.0, is_plausible=True))
+    p2 = SelfSupervisedEpoch(encoder, decoder, tok, sub, luts, cfg=Phase2Config(n_samples=256))
+    p2.validator = p2.physics = accept
+    enc0 = {k: v.clone() for k, v in encoder.state_dict().items()}
+    dec0 = {k: v.clone() for k, v in decoder.state_dict().items()}
+    before = _p2_params(p2)
+    batches = []
+    loss = p2.loss
+    p2.loss = lambda b: (batches.append(b), loss(b))[1]
+    out, launches_d = sub_epoch(p2, 256, '(d)', generator)
+    m = out['metrics']
+    losses = {k: m.get(k, float('nan')) for k in (
+        'loss1_round_trip', 'loss2_consistency', 'loss3_physics', 'loss4_reinforce')}
+    print(f'phase2 (d): losses {losses}, phase2_loss {m.get("phase2_loss")}, round_trip_z_mse '
+          f'{m.get("round_trip_z_mse")}')
+    check(len(batches) == 1 and all(math.isfinite(v) for v in losses.values()),
+          'phase2 (d): the update did not run or a loss is not finite')
+    after = _p2_params(p2)
+    for name in before:
+        moved = sum(not torch.equal(before[name][k], after[name][k]) for k in before[name])
+        print(f'phase2 (d): {name}: {moved} of {len(before[name])} parameter tensors changed')
+        check(moved > 0, f'phase2 (d): the {name} did not change')
+    del before, after
+    t_parts['(d)'] = time.perf_counter() - t_phase - sum(t_parts.values())
+
+    # (e) the update, card against CPU, on 16 of (d)'s rows from (d)'s
+    # starting weights, the modules in train mode (dropout 0.1); first a
+    # greedy rollout of 8 of those rows on each
+    phase2_card_vs_cpu(torch, dev, cfg, tok, sub, enc0, dec0,
+                       {k: v[:16] if torch.is_tensor(v) else v for k, v in batches[0].items()})
+    del batches, p2
+    t_parts['(e)'] = time.perf_counter() - t_phase - sum(t_parts.values())
+
+    # (f) one sub-epoch in bf16 compute (float32 parameters), as run4 ran it
+    enc_bf, dec_bf = seeded_models(torch, dev, cfg, dtype=torch.bfloat16)
+    p2 = SelfSupervisedEpoch(enc_bf, dec_bf, tok, sub, luts, cfg=Phase2Config(n_samples=64))
+    p2.validator = p2.physics = accept
+    out, launches_f = sub_epoch(p2, 64, '(f)', generator, dtype=torch.bfloat16)
+    bf_losses = [out['metrics'].get(k, float('nan')) for k in losses]
+    print(f'phase2 (f): bf16 losses {bf_losses}')
+    check(all(math.isfinite(v) for v in bf_losses), 'phase2 (f): a bf16 loss is not finite')
+    del p2, enc_bf, dec_bf, encoder, decoder, enc0, dec0
+    torch.cuda.empty_cache()
+    t_parts['(f)'] = time.perf_counter() - t_phase - sum(t_parts.values())
+
+    launches_g = phase2_train_check(torch, dev, cfg, ds, per_sub_epoch)
+    t_parts['(g)'] = time.perf_counter() - t_phase - sum(t_parts.values())
+    launches_h = phase2_standalone_check(torch, dev, per_sub_epoch)
+    t_parts['(h)'] = time.perf_counter() - t_phase - sum(t_parts.values())
+    shutil.rmtree(PHASE2_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f'phase2: the phase {time.perf_counter() - t_phase:.1f} s: '
+          + ', '.join(f'{k} {v:.1f} s' for k, v in t_parts.items()))
+    return launches_c + launches_d + launches_g + launches_h, launches_f
+
+
+def phase2_card_vs_cpu(torch, dev, cfg, tok, sub, enc_state, dec_state, batch):
+    """(e) From the same weights on the card and on the CPU, the modules in
+    train mode: a greedy rollout of 8 rows (the tokens agree up to EOS
+    except at a near-tie), then one Phase-2 update on ``batch`` (the losses
+    within METRIC_TOL, the AdamW moments and the parameter updates as the
+    train phase holds them)."""
+    from superconductor_vae_tpu_torch.generation import GenerationConfig, generate_with_kv_cache
+    from superconductor_vae_tpu_torch.models import FormulaDecoder, MaterialsEncoder
+    from superconductor_vae_tpu_torch.tokenizer import EOS_ID
+    from superconductor_vae_tpu_torch.training import (
+        Phase2Config, SelfSupervisedEpoch, build_luts)
+    cpu = torch.device('cpu')
+    gcfg = GenerationConfig(max_len=cfg.max_len, temperature=0.0)
+    streams, runs = {}, {}
+    for where, device in (('card', dev), ('cpu', cpu)):
+        enc = MaterialsEncoder(cfg, device=device)
+        dec = FormulaDecoder(cfg, device=device)
+        enc.load_state_dict(enc_state)
+        dec.load_state_dict(dec_state)
+        enc.train()
+        dec.train()
+        p2 = SelfSupervisedEpoch(enc, dec, tok, sub, build_luts(tok, device=device),
+                                 cfg=Phase2Config(n_samples=16))
+        b = {k: v.to(device) if torch.is_tensor(v) else v for k, v in batch.items()}
+        z = b['z_acc'][:8]
+        enc.eval()
+        dec.eval()
+        with torch.no_grad():
+            heads = enc.heads_from_z(z)
+        out = generate_with_kv_cache(dec, z, heads['stoich'], heads['heads_vec'], None, gcfg)
+        streams[where] = {'generated': out['tokens'].cpu(), 'margin': out['margin'].cpu()}
+        enc.train()
+        dec.train()
+        before = _p2_params(p2)
+        metrics = p2.update(b)
+        check(enc.training and dec.training, 'phase2 (e): the train modes were not given back')
+        runs[where] = (metrics, before, _p2_after(p2))
+        del enc, dec, p2
+    ties = compare_streams(streams['card'], streams['cpu'], EOS_ID, 'phase2 (e) greedy')
+    print(f'phase2 (e): the greedy rollout of 8 rows agrees card vs CPU up to EOS '
+          f'(near-tie divergences {ties})')
+    (m_c, before_c, after_c), (m_h, before_h, after_h) = runs['card'], runs['cpu']
+    check_metrics('phase2 (e)', {k: torch.tensor(v) for k, v in m_c.items()},
+                  {k: torch.tensor(v) for k, v in m_h.items()}, 'Phase-2 losses')
+    for name in after_h:
+        _tree_check('phase2 (e)', {k: v[2] for k, v in after_c[name].items()},
+                    {k: v[2] for k, v in after_h[name].items()}, f'{name} AdamW nu')
+    def mu(after):
+        return {g: {k: v[:2] for k, v in t.items()} for g, t in after.items()}
+
+    def params(before):
+        return {g: {k: (v,) for k, v in t.items()} for g, t in before.items()}
+    check_updates(torch, 'phase2 (e)', params(before_c), mu(after_c), params(before_h),
+                  mu(after_h), 3e-5 * 0.1)
+    torch.cuda.empty_cache()
+
+
+def phase2_train_check(torch, dev, cfg, ds, per_sub_epoch):
+    """(g) train() with Phase 2 open at every epoch (no TF-exact gate),
+    2 epochs on P2_TRAIN_ROWS rows, batch 256, without the set decoder and
+    the round trip: one phase2_log.jsonl line an epoch, and K1 launched 12
+    times a decode step of each eval rollout plus 696 a sub-epoch.  Returns
+    K1's launches."""
+    import math
+    import numpy as np
+    from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+    from superconductor_vae_tpu_torch.tokenizer import EOS_ID
+    from superconductor_vae_tpu_torch.training import TrainConfig, evaluate, train
+    out_dir = PHASE2_DIR / 'train'
+    tcfg = TrainConfig(num_epochs=2, batch_size=BATCH, max_formula_len=cfg.max_len,
+                       skew_transform='rank_gauss', eval_interval=1,
+                       hungarian_enabled=False, use_round_trip=False,
+                       phase2_enabled=True, phase2_auto_min_exact=0.0, phase2_interval=1)
+    logs = []
+    with CallLog(evaluate, 'generate_with_kv_cache') as gen_log:
+        torch.cuda.synchronize()
+        decode_step_attention.launches = 0
+        t0 = time.perf_counter()
+        out = train(model_config=cfg, train_config=tcfg,
+                    dataset=ds.subset(np.arange(P2_TRAIN_ROWS)), output_dir=out_dir,
+                    log_fn=logs.append, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = decode_step_attention.launches
+    for line in logs:
+        print(f'phase2 (g): {line}')
+    records = [json.loads(x) for x in (out_dir / 'phase2_log.jsonl').read_text().splitlines()]
+    eval_steps = [steps_run(o['tokens'], EOS_ID) for o in gen_log.outputs]
+    want = cfg.num_layers * sum(eval_steps) + per_sub_epoch * len(records)
+    print(f'phase2 (g): train() {secs:.1f} s for {len(out["history"])} epochs of '
+          f'{P2_TRAIN_ROWS} rows; phase2_log.jsonl epochs {[r["epoch"] for r in records]}; '
+          f'eval decode steps {eval_steps}; K1 launches {launches} = 12 x eval steps + 696 x '
+          f'{len(records)} sub-epochs = {want}')
+    check([r['epoch'] for r in records] == [0, 1], 'phase2 (g): one log line an epoch')
+    check(launches == want, f'phase2 (g): K1 launches {launches} != {want}')
+    check(all(math.isfinite(r['total']) for r in out['history']), 'phase2 (g): a loss')
+    del out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase2_standalone_check(torch, dev, per_sub_epoch):
+    """(h) The port's phase2_standalone CLI on the loop phase's checkpoint:
+    2 sub-epochs of 64 samples through K1 over the corpus's first 1,024
+    rows, then --save-checkpoint, which must load back to the CLI's final
+    parameters bit for bit.  Returns K1's launches."""
+    from superconductor_vae_tpu_torch.checkpoint import load_checkpoint
+    from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+    from superconductor_vae_tpu_torch.scripts import phase2_standalone
+    saved = PHASE2_DIR / 'saved'
+    torch.cuda.synchronize()
+    decode_step_attention.launches = 0
+    t0 = time.perf_counter()
+    out = phase2_standalone.main([
+        '--checkpoint', str(PHASE2_DIR / 'loop_checkpoint'), '--csv', str(CSV),
+        '--limit', str(P2_ROWS), '--sub-epochs', '2', '--n-samples', '64', '--pallas-decode',
+        '--out-dir', str(PHASE2_DIR / 'standalone'), '--save-checkpoint', str(saved)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = decode_step_attention.launches
+    log = [json.loads(x) for x in
+           (PHASE2_DIR / 'standalone' / 'phase2_log.jsonl').read_text().splitlines()]
+    print(f'phase2 (h): phase2_standalone {secs:.1f} s: sub-epochs '
+          + '; '.join(f'{r["sub_epoch"]}: {r["wall_s"]} s, accepted {r["metrics"]["n_accepted"]}'
+                      for r in log) + f'; K1 launches {launches}')
+    check(len(log) == 2 and launches == 2 * per_sub_epoch,
+          f'phase2 (h): {len(log)} sub-epochs, K1 launches {launches}')
+    restored, meta = load_checkpoint(saved)
+    check(meta.get('phase2') == out['summary'], 'phase2 (h): the summary in meta.json')
+    for key, module in (('enc_params', out['encoder']), ('dec_params', out['decoder'])):
+        check(_same_tree(restored[key], module.state_dict()),
+              f'phase2 (h): {key} differs after load_checkpoint')
+    print(f'phase2 (h): the saved checkpoint loads back to the CLI\'s final parameters bit '
+          f'for bit ({", ".join(sorted(restored))})')
+    del out, restored
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2715,19 +3079,23 @@ def main() -> int:
     k1_bf16, k1_bf16_err = k1_bf16_phase(torch, dev)
     bench_launches, _ = bench_phase(torch, dev)
     loop_launches = loop_phase(torch, dev, ds, step_rate)
+    p2_launches, p2_bf16_launches = phase2_phase(torch, dev, ds)
 
     k1_paths = {'eval': launches, 'eval corpus': corpus_launches,
                 'spec (plain scan)': spec_launches,
                 'defaults (round trip)': defaults_launches,
                 'soft-token (round trip)': soft_launches,
                 'rl scst': rl_results['scst'][1], 'rl rloo': rl_results['rloo'][1],
-                'loop': loop_launches}
+                'loop': loop_launches, 'phase2': p2_launches}
     launches = sum(k1_paths.values())
+    k1_bf16_paths = {'bench probes: train, rl and gen': bench_launches,
+                     'phase2 bf16': p2_bf16_launches}
+    bf16_launches = sum(k1_bf16_paths.values())
     print(f'total: {time.perf_counter() - t_start:.1f} s')
     print(f'kernels: ["K1 decode_step_attention", "K1 decode_step_attention bf16", '
           f'"K2 flash_attention", "K2 flash_attention bf16"] launches: '
           f'{{"K1 decode_step_attention": {launches} {k1_paths}, '
-          f'"K1 decode_step_attention bf16": {bench_launches} (bench probes: train, rl and gen), '
+          f'"K1 decode_step_attention bf16": {bf16_launches} {k1_bf16_paths}, '
           f'"K2 flash_attention": {k2_launches[torch.float32]}, "K2 flash_attention bf16": '
           f'{k2_launches[torch.bfloat16]}}}')
     print(json.dumps({'kernels': [{
@@ -2740,7 +3108,7 @@ def main() -> int:
         'name': 'K1 decode_step_attention bf16', 'route': 'cuda',
         'source': 'superconductor_vae_tpu_torch/csrc/decode_attention.cu',
         'replaces': 'superconductor_vae_tpu/ops/pallas_decode.py:80',
-        'launches': bench_launches, 'max_abs_err': k1_bf16_err,
+        'launches': bf16_launches, 'max_abs_err': k1_bf16_err,
         **k1_bf16,
     }, {
         'name': 'K2 flash_attention', 'route': 'cuda',

@@ -76,11 +76,6 @@ def save_checkpoint(root: str | Path, state, mcfg, tcfg,
     ``meta.json``) and ``extra_arrays`` (tensors, into the payload) under
     ``root``; returns the checkpoint's directory."""
     root = Path(root).resolve()
-    path = root / tag if tag else _ckpt_dir(root, epoch)
-    tmp = path.with_name(f'.{path.name}.tmp')
-    shutil.rmtree(tmp, ignore_errors=True)
-    tmp.mkdir(parents=True)
-
     payload: Dict[str, Any] = {'step': int(state.step),
                                'enc_params': state.encoder.state_dict(),
                                'dec_params': state.decoder.state_dict(),
@@ -94,8 +89,6 @@ def save_checkpoint(root: str | Path, state, mcfg, tcfg,
         payload['set_opt'] = state.set_opt.state_dict()
     if extra_arrays:
         payload.update(extra_arrays)
-    torch.save(_to_cpu(payload), tmp / PAYLOAD)
-
     meta = {
         'epoch': epoch,
         'metrics': metrics or {},
@@ -115,6 +108,21 @@ def save_checkpoint(root: str | Path, state, mcfg, tcfg,
             'order_augment': tcfg.order_augment,
         },
     }
+    return save_params_checkpoint(root / tag if tag else _ckpt_dir(root, epoch),
+                                  payload, meta)
+
+
+def save_params_checkpoint(path: str | Path, payload: Dict[str, Any], meta: Dict) -> Path:
+    """Writes ``payload`` (tensors) and ``meta`` as the checkpoint directory
+    ``path``, all or nothing (a hidden temporary directory renamed into
+    place).  With only ``enc_params`` and ``dec_params`` in the payload it
+    is a params-only checkpoint, from which ``train`` resumes with fresh
+    optimizers.  Returns the directory."""
+    path = Path(path).resolve()
+    tmp = path.with_name(f'.{path.name}.tmp')
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    torch.save(_to_cpu(payload), tmp / PAYLOAD)
     (tmp / 'meta.json').write_text(json.dumps(meta, indent=2, default=str))
     _replace_dir(tmp, path)
     return path

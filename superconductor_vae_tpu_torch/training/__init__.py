@@ -9,4 +9,6 @@ from .schedulers import (DropDetector, EntropyManager, LossSkipScheduler,
                          PerPositionEntropyWeighter, PhysZController, PlateauDetector,
                          RLController, TcBinTracker, cosine_lr, curriculum_weights,
                          rl_temperature, teacher_forcing_ratio)
+from .self_supervised import (NovelDiscoveryTracker, Phase2Config, SelfSupervisedEpoch,
+                              phase2_seed)
 from .train_loop import train

@@ -6,8 +6,9 @@ the epochs: the per-epoch controller decisions (curriculum, RL, physics-Z,
 loss skipping, entropy, the learning rate), the epoch itself (the
 device-resident dataset through ``make_epoch_runner``, or per batch from
 the host), the true-AR eval on its cadence feeding mastery sampling, the
-curriculum and the Tc-bin tracker, the latent cache and topology on the
-checkpoint cadence, drop detection with rollback to the 'best'
+curriculum and the Tc-bin tracker, the gated Phase-2 self-supervised
+sub-epoch (training/self_supervised.py), the latent cache and topology on
+the checkpoint cadence, drop detection with rollback to the 'best'
 checkpoint, the metrics CSV, and full-state checkpoints with resume,
 manifest drift and auto-migration; SIGINT and SIGTERM save an 'interrupt'
 checkpoint.
@@ -23,8 +24,11 @@ Differences from the JAX loop:
   the epoch of the last 'best' save, and a resume re-applies the mastery
   weights to the sampler, so a resumed run repeats an uninterrupted one
   exactly (JAX's per-step key stream and those states are not saved);
+- Phase 2 draws from a generator seeded from ``tcfg.seed`` and the epoch
+  (``phase2_seed``), not from the step seeds; its optimizers, as JAX's,
+  are in no checkpoint, so a resume starts them afresh;
 - options whose parts are not ported raise ``NotImplementedError`` naming
-  their slice: ``phase2_enabled`` (A.14) and ``debug_numerics`` (A.16).
+  their slice: ``debug_numerics`` (A.16).
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from ..utils.device import resolve_device
 from .config import TrainConfig
 from .evaluate import _to_device, evaluate_autoregressive
 from .mastery_sampler import CurriculumScheduler, MasteryTracker
+from .self_supervised import Phase2Config, SelfSupervisedEpoch, phase2_seed
 from .schedulers import (DropDetector, EntropyManager, LossSkipScheduler,
                          PerPositionEntropyWeighter, PhysZController, RLController,
                          TcBinTracker, cosine_lr, curriculum_weights, teacher_forcing_ratio)
@@ -72,9 +77,6 @@ def check_loop_supported(tcfg: TrainConfig) -> None:
     """Raises ``NotImplementedError`` for the loop's options that are not
     ported, naming their slices, and ``ValueError`` for a compute dtype
     other than float32 or bfloat16."""
-    if tcfg.phase2_enabled:
-        raise NotImplementedError('train: phase2_enabled (the self-supervised phase 2: '
-                                  'the phase-2 slice, A.14) is not ported yet')
     if tcfg.debug_numerics:
         raise NotImplementedError('train: debug_numerics (the NaN/Inf sanitizer: the '
                                   'utilities slice, A.16) is not ported yet')
@@ -181,6 +183,17 @@ def train(
     if tcfg.curriculum_ar_enabled:
         curriculum = CurriculumScheduler((ds.tokens != 0).sum(axis=1))
     topo = TopologyAnalyzer(output_dir=out_dir)
+
+    # Phase-2 self-supervised machinery (gated)
+    phase2 = None
+    if tcfg.phase2_enabled:
+        phase2 = SelfSupervisedEpoch(
+            state.encoder, state.decoder, tokenizer, ds, luts,
+            cfg=Phase2Config(n_samples=tcfg.phase2_n_samples,
+                             lr_factor=tcfg.phase2_lr_factor,
+                             max_weight=tcfg.phase2_max_weight,
+                             warmup=tcfg.phase2_warmup),
+            base_lr=tcfg.learning_rate, output_dir=str(out_dir))
 
     # graceful shutdown: SIGINT/SIGTERM saves a full-state 'interrupt'
     # checkpoint at the end of the epoch
@@ -406,6 +419,22 @@ def train(
                 if curriculum is not None:
                     curriculum.report_ar_exact(per, idx)
                 sampler.set_weights(_combined_weights())
+
+                # the Phase-2 sub-epoch, gated on the TF exact match
+                if (phase2 is not None
+                        and tf_exact >= tcfg.phase2_auto_min_exact
+                        and (epoch + 1) % tcfg.phase2_interval == 0):
+                    cache = LatentSpaceAnalyzer(state.encoder).build_cache(ds)
+                    p2_w = tcfg.phase2_max_weight * min(
+                        1.0, (epoch + 1) / max(tcfg.phase2_warmup, 1))
+                    gen = torch.Generator(device=device).manual_seed(
+                        phase2_seed(tcfg.seed, epoch))
+                    p2 = phase2.run(cache.z, gen, phase2_weight=p2_w,
+                                    current_exact=tf_exact)
+                    log_fn(f"[phase2] {p2['metrics']}")
+                    # one record a sub-epoch (read by scripts/phase2_dashboard.py)
+                    with open(out_dir / 'phase2_log.jsonl', 'a') as f:
+                        f.write(json.dumps({'epoch': epoch, **p2['metrics']}) + '\n')
 
                 # latent cache and topology telemetry on the checkpoint cadence
                 if (epoch + 1) % tcfg.checkpoint_interval == 0:

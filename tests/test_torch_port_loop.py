@@ -447,8 +447,7 @@ def test_drop_rollback_restores_the_best_checkpoint(tmp_path, monkeypatch, one_e
         assert torch.equal(saved['enc_params'][name], v), name
 
 
-@pytest.mark.parametrize('option,slice_name', [
-    (dict(phase2_enabled=True), 'A.14'), (dict(debug_numerics=True), 'A.16')])
+@pytest.mark.parametrize('option,slice_name', [(dict(debug_numerics=True), 'A.16')])
 def test_unported_options_raise(tmp_path, option, slice_name):
     tc = TrainConfig(**dict(_LOOP, **option))
     with pytest.raises(NotImplementedError, match=slice_name):
