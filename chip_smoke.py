@@ -193,6 +193,29 @@
    sub-epoch; (h) the port's phase2_standalone CLI on the loop phase's
    checkpoint (2 sub-epochs of 64, --pallas-decode, --save-checkpoint),
    whose saved checkpoint loads back bit for bit.
+12c. Holdout phase: generation/discovery.py and generation/holdout_search.py
+   at run4's widths with the e2e phase's weights and the K1 decoder,
+   float32, on the loaded corpus ('holdout' lines).  (a) K1 against its
+   plain version at the discovery decode's chunk, B=2048 (T=30, H=8,
+   Dh=72), at every position 0-28, caches compared exactly, and timed (mean
+   over positions) beside the plain version, SDPA and the bound; (b) the
+   analyzer's cache over the corpus and SuperconductorDiscoveryPipeline.run
+   with 256 candidates; (c) a greedy decode of a 4,196-row candidate pool
+   in chunks of 2048 (the third padded) through K1 against the plain
+   attention path (tokens equal up to EOS but at near-ties), 8 of its rows
+   against the CPU, formulas/s; (d) HoldoutSearch.search of 2 targets at
+   budget 2048 with every tier at its default steps, without zoom-in
+   rounds (random weights find nothing, so every tier runs): each tier's
+   seconds, the inversion's steps/s, the host scoring's seconds; (e) card against CPU from the same
+   weights: the first guided (both slot conventions) and inversion
+   gradients with respect to z on 4 starts (1e-4 of the largest
+   component), z after 8 Adam steps (1e-3), predict_tc_mc at dropout 0
+   (mean = tc_pred, std 0); (f) the port's holdout CLI on the loop phase's
+   checkpoint with --pallas-decode, one target at budget 2048 with a
+   stream (no zoom-in rounds, an inversion of 48 steps), then
+   --oracle-only, the stream summarised by the port's
+   holdout_summarize.  In (b), (c), (d) and (f) K1 runs exactly 12 x the
+   decode steps of every rollout and K2 never.
 13. Prints the kernels' JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -2400,31 +2423,48 @@ def host_syncs(torch, fn):
 
 
 class Timings:
-    """Stands in for each ``owner.name`` of ``targets`` while entered (a
-    module's function or a class's method) and keeps (seconds, result) of
-    each call by name."""
+    """Stands in for each ``owner.name`` of ``targets`` ((owner, name) or
+    (owner, name, label): a module's function, a class's or an object's
+    method) while entered and keeps (seconds, result) of each call by
+    label, and (label, start, end) of each call in order.  The card is
+    synchronised at the end of each call but those of the host functions
+    labelled in ``host``."""
 
-    def __init__(self, torch, *targets):
-        self.torch, self.targets, self.calls = torch, targets, {}
+    def __init__(self, torch, *targets, host=()):
+        self.torch, self.targets, self.host = torch, targets, host
+        self.calls, self.events = {}, []
 
     def _wrap(self, name, fn):
+        sync = name not in self.host
+
         def timed(*args, **kwargs):
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
-            self.torch.cuda.synchronize()
-            self.calls.setdefault(name, []).append((time.perf_counter() - t0, out))
+            if sync:
+                self.torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            self.calls.setdefault(name, []).append((t1 - t0, out))
+            self.events.append((name, t0, t1))
             return out
         return timed
 
     def __enter__(self):
-        self.originals = [(owner, name, getattr(owner, name)) for owner, name in self.targets]
-        for owner, name, fn in self.originals:
-            setattr(owner, name, self._wrap(name, fn))
+        self.originals = [(t[0], t[1], getattr(t[0], t[1])) for t in self.targets]
+        for (owner, name, fn), t in zip(self.originals, self.targets):
+            setattr(owner, name, self._wrap(t[-1] if len(t) > 2 else name, fn))
         return self
 
     def __exit__(self, *exc):
         for owner, name, fn in self.originals:
             setattr(owner, name, fn)
+
+    def seconds(self, name, lo=0.0, hi=float('inf')):
+        """Seconds of the calls of ``name`` that started in [lo, hi)."""
+        return sum(e - s for n, s, e in self.events if n == name and lo <= s < hi)
+
+    def first(self, name, lo=0.0):
+        """Start of the first call of ``name`` at or after ``lo``."""
+        return min((s for n, s, _ in self.events if n == name and s >= lo), default=None)
 
 
 def loop_config(cfg, **kw):
@@ -2893,7 +2933,6 @@ def phase2_phase(torch, dev, ds):
     t_parts['(g)'] = time.perf_counter() - t_phase - sum(t_parts.values())
     launches_h = phase2_standalone_check(torch, dev, per_sub_epoch)
     t_parts['(h)'] = time.perf_counter() - t_phase - sum(t_parts.values())
-    shutil.rmtree(PHASE2_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     print(f'phase2: the phase {time.perf_counter() - t_phase:.1f} s: '
           + ', '.join(f'{k} {v:.1f} s' for k, v in t_parts.items()))
@@ -3039,6 +3078,337 @@ def phase2_standalone_check(torch, dev, per_sub_epoch):
     return launches
 
 
+# -- holdout phase --------------------------------------------------------------
+
+HOLDOUT_K1_B = 2048               # the discovery decode's chunk (decode_latents chunk=2048)
+HOLDOUT_CANDIDATES = 256          # SuperconductorDiscoveryPipeline.run(n_candidates)
+HOLDOUT_POOL = 2 * HOLDOUT_K1_B + 100    # two full decode chunks and a padded third
+HOLDOUT_TARGETS = 2
+HOLDOUT_BUDGET = 2048
+# the search (d) runs without zoom-in rounds: search()'s default, 2, runs
+# each tier three times (87-91 s a target on an H100); the CLI (f), a check
+# of the entry point, also with an inversion of 48 steps (384 took 31-35 s
+# a target in (d) on an H100)
+HOLDOUT_REFINE = 0
+HOLDOUT_CLI_INVERSION_STEPS = 48
+HOLDOUT_GRAD_REL = 1e-4           # card vs CPU: first gradients w.r.t. z, of the largest component
+HOLDOUT_Z_TOL = 1e-3              # card vs CPU: z after 8 Adam steps
+
+
+def _rel_err(torch, got, want):
+    """Largest difference over the largest magnitude of ``want``."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def holdout_phase(torch, dev, ds):
+    """Discovery and the generative holdout search (generation/discovery.py,
+    generation/holdout_search.py) at run4's widths with the e2e phase's
+    weights and the K1 decoder, float32, on the loaded corpus ('holdout'
+    lines): (a) K1 at B=2048 against its plain version and timed; (b)
+    SuperconductorDiscoveryPipeline.run; (c) a chunked greedy decode
+    through K1 against the plain attention path and the CPU; (d) a search
+    of two targets with every tier, no zoom-in rounds; (e) the descents' gradients and z, and
+    predict_tc_mc, card against CPU; (f) the holdout CLI and the stream's
+    summary.  Returns K1's launches on the main paths (b), (d) and (f) and
+    the B=2048 times."""
+    import shutil
+    import numpy as np
+    from superconductor_vae_tpu_torch.generation import SuperconductorDiscoveryPipeline
+    from superconductor_vae_tpu_torch.generation import discovery
+    from superconductor_vae_tpu_torch.generation import holdout_search as hs
+    from superconductor_vae_tpu_torch.models import config_from_meta
+    from superconductor_vae_tpu_torch.models.decoder import plain_layout
+    from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+    from superconductor_vae_tpu_torch.ops.fused_attention import flash_attention
+    from superconductor_vae_tpu_torch.tokenizer import EOS_ID, default_tokenizer
+
+    t_phase = time.perf_counter()
+    t_parts = {}
+
+    def part(name):
+        t_parts[name] = time.perf_counter() - t_phase - sum(t_parts.values())
+
+    meta = json.loads(META.read_text())
+    cfg = config_from_meta(meta['model_config'], pallas_decode=True)
+    layers, steps = cfg.num_layers, cfg.max_len - 1
+
+    # (a) K1 at the discovery chunk, every position, caches exact; timed
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    worst = max(k1_held(torch, gen, HOLDOUT_K1_B, cfg.nhead, cfg.max_len, cfg.head_dim,
+                        torch.float32, p) for p in range(steps))
+    print(f'holdout (a): K1 float32 B={HOLDOUT_K1_B} H={cfg.nhead} T={cfg.max_len} '
+          f'Dh={cfg.head_dim} positions 0..{steps - 1}: max_abs_err={worst:.3e} '
+          f'(tol {K1_TOL["float32"]}) caches_equal=True')
+    b2048 = k1_position_means(torch, gen, HOLDOUT_K1_B, cfg.nhead, cfg.max_len, cfg.head_dim,
+                              torch.float32, 'holdout (a)')
+    part('(a)')
+
+    encoder, decoder = seeded_models(torch, dev, cfg)
+    tok = default_tokenizer(max_len=cfg.max_len)
+    pipe = SuperconductorDiscoveryPipeline(encoder, decoder, tok, ds, type_masks=tok.type_masks)
+
+    def counted(what, fn):
+        """``fn()`` through the main path, K1 and K2 counts at 0 just
+        before and read just after; K1 must have run 12 x the decode steps
+        of every rollout the call made.  Returns (out, seconds, K1)."""
+        with CallLog(discovery, 'generate_with_kv_cache') as gen_log:
+            torch.cuda.synchronize()
+            decode_step_attention.launches = 0
+            flash_attention.launches = 0
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches, k2 = decode_step_attention.launches, flash_attention.launches
+        decode_steps = [steps_run(o['tokens'], EOS_ID) for o in gen_log.outputs]
+        print(f'holdout {what}: {secs:.2f} s; {len(decode_steps)} rollouts of '
+              f'{sum(decode_steps)} decode steps; K1 launches {launches} = {layers} x '
+              f'{sum(decode_steps)}; K2 launches {k2}')
+        check(launches == layers * sum(decode_steps) and launches > 0,
+              f'holdout {what}: K1 launches {launches} != {layers} x {sum(decode_steps)}')
+        check(k2 == 0, f'holdout {what}: K2 launched {k2} times')
+        return out, secs, launches, gen_log.outputs
+
+    # (b) the analyzer's cache over the corpus, then the discovery pipeline
+    t0 = time.perf_counter()
+    cache = pipe.analyzer.build_cache(ds)
+    torch.cuda.synchronize()
+    print(f'holdout (b): analyzer cache of {len(ds)} rows {time.perf_counter() - t0:.2f} s, '
+          f'z {cache.z.shape} finite {bool(np.isfinite(cache.z).all())}')
+    check(cache.z.shape == (len(ds), cfg.latent_dim) and np.isfinite(cache.z).all(),
+          'holdout (b): the cache')
+    host = ('correct', 'validate', 'physics')
+    with Timings(torch, (pipe.analyzer, 'build_cache'), (pipe.analyzer, 'find_high_tc_clusters'),
+                  (pipe.generator, 'gradient_ascent_tc'), (pipe.generator, 'evolutionary'),
+                  (pipe, 'decode_latents'), (discovery, 'predict_tc_mc'),
+                  (pipe.corrector, 'correct'), (pipe.validator, 'validate'),
+                  (pipe.physics, 'validate', 'physics'), host=host) as log:
+        cands, secs, launches_b, _ = counted('(b) run', lambda: pipe.run(
+            n_candidates=HOLDOUT_CANDIDATES, seed=SEED))
+    print('holdout (b): run\'s parts: ' + ', '.join(
+        f'{n} {log.seconds(n):.2f} s' for n in (
+            'build_cache', 'find_high_tc_clusters', 'gradient_ascent_tc', 'evolutionary',
+            'decode_latents', 'predict_tc_mc') + host))
+    strategies = {}
+    for c in cands:
+        strategies[c.strategy] = strategies.get(c.strategy, 0) + 1
+    print(f'holdout (b): run(n_candidates={HOLDOUT_CANDIDATES}) {secs:.2f} s: {len(cands)} '
+          f'candidates by strategy {strategies}; top '
+          + '; '.join(f'{c.formula} rank {c.rank_score:.3g}' for c in cands[:3]))
+    check(all(np.isfinite([c.rank_score, c.tc_pred_kelvin, c.tc_uncertainty]).all()
+              for c in cands), 'holdout (b): a candidate is not finite')
+    check(not encoder.training and not decoder.training, 'holdout (b): the modes')
+    part('(b)')
+
+    # (c) a chunked greedy decode of a pool through K1 against the plain
+    # attention path (the same weights), and 8 rows against the CPU
+    search = hs.HoldoutSearch(pipe)
+    target = search.targets[0]
+    z = search._candidate_latents(target, cache, HOLDOUT_POOL,
+                                  torch.Generator(device=dev).manual_seed(SEED))
+    check(z.shape == (HOLDOUT_POOL, cfg.latent_dim), f'holdout (c): the pool {tuple(z.shape)}')
+    formulas, secs, _, k1_out = counted('(c) decode', lambda: pipe.decode_latents(
+        z, chunk=HOLDOUT_K1_B, snap_stoich=True))
+    check([o['tokens'].shape[0] for o in k1_out] == [HOLDOUT_K1_B] * 3,
+          'holdout (c): three chunks of 2048 rows')
+    plain = SuperconductorDiscoveryPipeline(encoder, plain_layout(decoder), tok, ds,
+                                            type_masks=tok.type_masks)
+    with CallLog(discovery, 'generate_with_kv_cache') as plain_log:
+        plain_formulas = plain.decode_latents(z, chunk=HOLDOUT_K1_B, snap_stoich=True)
+    ties = sum(compare_streams({'generated': a['tokens'], 'margin': a['margin']},
+                               {'generated': b['tokens'], 'margin': b['margin']}, EOS_ID,
+                               f'holdout (c) chunk {i}')
+               for i, (a, b) in enumerate(zip(k1_out, plain_log.outputs)))
+    n_diff = sum(a != b for a, b in zip(formulas, plain_formulas))
+    print(f'holdout (c): {len(formulas)} formulas ({len(set(formulas))} distinct) in {secs:.2f} '
+          f's through K1: {len(formulas) / secs:.0f} formulas/s; against the plain path: '
+          f'{n_diff} differ, near-tie divergences {ties}')
+    check(len(formulas) == HOLDOUT_POOL and n_diff <= ties, 'holdout (c): K1 vs plain')
+    cpu = torch.device('cpu')
+    enc_h, dec_h = _cpu_twins(torch, cfg, encoder, decoder)
+    pipe_h = SuperconductorDiscoveryPipeline(enc_h, dec_h, tok, ds, type_masks=tok.type_masks)
+    rows = torch.arange(0, HOLDOUT_POOL, HOLDOUT_POOL // N_CPU_ROWS)[:N_CPU_ROWS]
+    with CallLog(discovery, 'generate_with_kv_cache') as cpu_log:
+        cpu_formulas = pipe_h.decode_latents(z[rows.to(dev)].cpu(), snap_stoich=True)
+    card_rows = torch.cat([o['tokens'] for o in k1_out])[rows.to(dev)]
+    card_margin = torch.cat([o['margin'] for o in k1_out])[rows.to(dev)]
+    ties = compare_streams({'generated': card_rows.cpu(), 'margin': card_margin.cpu()},
+                           {'generated': cpu_log.outputs[0]['tokens'],
+                            'margin': cpu_log.outputs[0]['margin']}, EOS_ID,
+                           'holdout (c) card vs CPU')
+    print(f'holdout (c): {N_CPU_ROWS} rows card vs CPU agree up to EOS (near-tie divergences '
+          f'{ties}); the CPU formulas equal the card\'s: '
+          f'{[formulas[r] for r in rows.tolist()] == cpu_formulas}')
+    del plain, plain_log, k1_out
+    part('(c)')
+
+    # (d) a search of two targets at the default tiers and steps
+    quiet = []
+    with Timings(torch, *((search, m) for m in (
+            '_candidate_latents', 'head_guided_latents', '_inverse_regression_latents',
+            'decoder_inversion_latents', 'oracle_reconstruct', 'consistency_check')),
+            (pipe, 'decode_latents'), (hs, 'element_similarity'),
+            (hs, 'canonical_composition_key'),
+            host=('element_similarity', 'canonical_composition_key')) as log:
+        results, secs, launches_d, _ = counted('(d) search', lambda: search.search(
+            budget_per_target=HOLDOUT_BUDGET, targets=search.targets[:HOLDOUT_TARGETS],
+            refine_rounds=HOLDOUT_REFINE, seed=SEED, log_fn=quiet.append))
+    for line in quiet:
+        print(f'holdout (d): {line}')
+    # a target starts at its pool (the first tier's first step) and ends
+    # after its oracle (the last step but the consistency check)
+    bounds = [log.first('_candidate_latents', lo) for lo in
+              [0.0] + [e for n, _, e in log.events if n == 'oracle_reconstruct']][:HOLDOUT_TARGETS]
+    for t_i, r in enumerate(results):
+        lo = bounds[t_i]
+        hi = bounds[t_i + 1] if t_i + 1 < len(bounds) else float('inf')
+        g0, i0 = log.first('head_guided_latents', lo), log.first('decoder_inversion_latents', lo)
+        o0 = log.first('oracle_reconstruct', lo)
+        inv_s = log.seconds('decoder_inversion_latents', lo, hi)
+        n_inv = sum(1 for n, s, _ in log.events
+                    if n == 'decoder_inversion_latents' and lo <= s < hi)
+        scoring = (log.seconds('element_similarity', lo, hi)
+                   + log.seconds('canonical_composition_key', lo, hi))
+        print(f'holdout (d): target {t_i} {r.target}: {r.wall_s} s; tiers: navigation '
+              f'{g0 - lo:.2f} s, guided {i0 - g0:.2f} s, inversion {o0 - i0:.2f} s; oracle and '
+              f'consistency {r.wall_s - (o0 - lo):.2f} s; '
+              f'decode {log.seconds("decode_latents", lo, hi):.2f} s, guided descent '
+              f'{log.seconds("head_guided_latents", lo, hi):.2f} s, inversion descent '
+              f'{inv_s:.2f} s ({n_inv} x 384 steps of 24 starts: '
+              f'{n_inv * 384 / max(inv_s, 1e-9):.1f} '
+              f'steps/s), pool {log.seconds("_candidate_latents", lo, hi):.2f} s, inverse '
+              f'regression {log.seconds("_inverse_regression_latents", lo, hi):.2f} s, host '
+              f'scoring {scoring:.2f} s; {r.n_candidates} distinct formulas, best '
+              f'{r.best_match[:40]!r} sim {r.best_similarity:.3f}, tier_sim {r.tier_sim}, '
+              f'inversion_diag {r.inversion_diag}')
+        check(r.tier_sim is not None and set(r.tier_sim) == {'navigation', 'guided', 'inversion'},
+              f'holdout (d): target {t_i} did not run every tier: {r.tier_sim}')
+    print(f'holdout (d): search of {HOLDOUT_TARGETS} targets at budget {HOLDOUT_BUDGET}: '
+          f'{secs:.1f} s; summary {hs.HoldoutSearch.summarize(results)}')
+    check(not encoder.training and not decoder.training and
+          all(p.grad is None for m in (encoder, decoder) for p in m.parameters()),
+          'holdout (d): the modes or a weight gradient')
+    part('(d)')
+
+    # (e) the descents, card against CPU from the same weights
+    search_h = hs.HoldoutSearch(pipe_h)
+    holdout_card_vs_cpu(torch, dev, cfg, search, search_h, cache)
+    del search_h, pipe_h, enc_h, dec_h
+    part('(e)')
+
+    # (f) the CLI on the loop phase's checkpoint, then its stream's summary
+    launches_f = holdout_cli_check(torch, counted)
+    part('(f)')
+    shutil.rmtree(PHASE2_DIR, ignore_errors=True)
+    del pipe, search, encoder, decoder, cache
+    torch.cuda.empty_cache()
+    print(f'holdout: the phase {time.perf_counter() - t_phase:.1f} s: '
+          + ', '.join(f'{k} {v:.1f} s' for k, v in t_parts.items()))
+    return launches_b + launches_d + launches_f, b2048
+
+
+def _cpu_twins(torch, cfg, encoder, decoder):
+    """CPU copies of the card's models (the same weights), in eval mode."""
+    from superconductor_vae_tpu_torch.models import FormulaDecoder, MaterialsEncoder
+    enc = MaterialsEncoder(cfg, device='cpu')
+    dec = FormulaDecoder(cfg, device='cpu')
+    enc.load_state_dict(encoder.state_dict())
+    dec.load_state_dict(decoder.state_dict())
+    return enc.eval(), dec.eval()
+
+
+def holdout_card_vs_cpu(torch, dev, cfg, search, search_h, cache):
+    """(e) The first gradient with respect to z of the guided objective
+    (both slot conventions) and of the inversion objective on 4 starts,
+    within HOLDOUT_GRAD_REL of the largest component; z after 8 Adam steps
+    of each within HOLDOUT_Z_TOL; predict_tc_mc at dropout 0 against
+    tc_pred (std 0)."""
+    import dataclasses
+    from superconductor_vae_tpu_torch.models import MaterialsEncoder
+    from superconductor_vae_tpu_torch.models.encoder import predict_tc_mc
+    from superconductor_vae_tpu_torch.models.layers import eval_mode
+    target = next(t for t in search.targets if search._target_token_ids(t) is not None)
+    z0 = search._anchor_latents(target, cache, n=4)
+    for order_free in (False, True):
+        grads, zs = [], []
+        for s in (search, search_h):
+            start = z0.to(s.device)
+            arrays = s._guided_arrays(target, order_free)
+            z = start.clone().requires_grad_(True)
+            with eval_mode(s.pipe.encoder):
+                grads.append(torch.autograd.grad(
+                    s._guided_objective(z, start, arrays, 2e-3, order_free), z)[0])
+            zs.append(s.head_guided_latents(target, start, steps=8, n_snapshots=1,
+                                            order_free=order_free))
+        g_err, z_err = _rel_err(torch, *grads), float((zs[0].cpu() - zs[1]).abs().max())
+        print(f'holdout (e): guided (order_free={order_free}) card vs CPU: first gradient '
+              f'{g_err:.2e} of its largest component (tol {HOLDOUT_GRAD_REL}), z after 8 Adam '
+              f'steps max |dz| {z_err:.2e} (tol {HOLDOUT_Z_TOL})')
+        check(g_err <= HOLDOUT_GRAD_REL and z_err <= HOLDOUT_Z_TOL, 'holdout (e): guided')
+    grads, zs, diags = [], [], []
+    ids = search._target_token_ids(target)
+    for s in (search, search_h):
+        start = z0.to(s.device)
+        toks = s._inversion_tokens(ids, 4)
+        z = start.clone().requires_grad_(True)
+        with eval_mode(s.pipe.encoder, s.pipe.decoder):
+            grads.append(torch.autograd.grad(
+                s._inversion_objective(z, start, toks, 1e-3, 0.25), z)[0])
+        zs.append(s.decoder_inversion_latents(target, start, steps=8, n_snapshots=1))
+        diags.append(s.last_inversion_diag)
+    g_err, z_err = _rel_err(torch, *grads), float((zs[0].cpu() - zs[1]).abs().max())
+    print(f'holdout (e): inversion card vs CPU: first gradient {g_err:.2e} of its largest '
+          f'component (tol {HOLDOUT_GRAD_REL}), z after 8 Adam steps max |dz| {z_err:.2e} '
+          f'(tol {HOLDOUT_Z_TOL}); diagnostics card {diags[0]}, CPU {diags[1]}')
+    check(g_err <= HOLDOUT_GRAD_REL and z_err <= HOLDOUT_Z_TOL, 'holdout (e): inversion')
+    enc0 = MaterialsEncoder(dataclasses.replace(cfg, dropout=0.0), device=dev)
+    enc0.load_state_dict(search.pipe.encoder.state_dict())
+    zc = torch.as_tensor(cache.z[:256], device=dev)
+    mean, std = predict_tc_mc(enc0, zc, seed=SEED)
+    with torch.no_grad():
+        tc = enc0.eval().decode(zc)['tc_pred']
+    mc_err, std_max = _rel_err(torch, mean, tc), float(std.abs().max())
+    print(f'holdout (e): predict_tc_mc at dropout 0 on 256 rows: mean vs tc_pred {mc_err:.2e} '
+          f'of the largest, std max {std_max:.2e}')
+    # the ten copies of a row may meet other GEMM tiles than the single pass
+    check(mc_err <= 1e-5 and std_max <= 1e-6 * float(tc.abs().max()),
+          'holdout (e): predict_tc_mc')
+
+
+def holdout_cli_check(torch, counted):
+    """(f) The port's holdout CLI on the loop phase's checkpoint through
+    K1, a search of one target at budget 2048 with a stream (no zoom-in
+    rounds, an inversion of 48 steps), then
+    --oracle-only; the stream summarised by the port's holdout_summarize.
+    Returns K1's launches."""
+    from superconductor_vae_tpu_torch.scripts import holdout_search as cli
+    from superconductor_vae_tpu_torch.scripts import holdout_summarize
+    out_dir = PHASE2_DIR / 'holdout'
+    common = ['--checkpoint', str(PHASE2_DIR / 'loop_checkpoint'), '--csv', str(CSV),
+              '--pallas-decode', '--n-targets', '1']
+    res, secs, launches, _ = counted('(f) CLI search', lambda: cli.main(common + [
+        '--budget', str(HOLDOUT_BUDGET), '--refine-rounds', str(HOLDOUT_REFINE),
+        '--inversion-steps', str(HOLDOUT_CLI_INVERSION_STEPS),
+        '--stream', str(out_dir / 'stream.jsonl'),
+        '--out', str(out_dir / 'search.json')]))
+    written = json.loads((out_dir / 'search.json').read_text())
+    summary = holdout_summarize.main(['--stream', str(out_dir / 'stream.jsonl'),
+                                      '--out', str(out_dir / 'summary.json')])
+    print(f'holdout (f): CLI search {secs:.1f} s: {written["summary"]}; stream summary '
+          f'targets_completed {summary["targets_completed"]}, mean_similarity '
+          f'{summary["mean_similarity"]:.3f}')
+    check(written['summary'] == res['summary'] and summary['targets_completed'] == 1,
+          'holdout (f): the CLI search\'s JSON or its stream')
+    res, secs, launches_o, _ = counted('(f) CLI oracle', lambda: cli.main(common + [
+        '--oracle-only', '--out', str(out_dir / 'oracle.json')]))
+    written = json.loads((out_dir / 'oracle.json').read_text())
+    print(f'holdout (f): CLI --oracle-only {secs:.1f} s: {written["summary"]}, '
+          f'{written["results"][0]["oracle_formula"]!r}')
+    check(written['summary']['n_targets'] == 1, 'holdout (f): the oracle JSON')
+    return launches + launches_o
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3080,13 +3450,14 @@ def main() -> int:
     bench_launches, _ = bench_phase(torch, dev)
     loop_launches = loop_phase(torch, dev, ds, step_rate)
     p2_launches, p2_bf16_launches = phase2_phase(torch, dev, ds)
+    holdout_launches, k1_b2048 = holdout_phase(torch, dev, ds)
 
     k1_paths = {'eval': launches, 'eval corpus': corpus_launches,
                 'spec (plain scan)': spec_launches,
                 'defaults (round trip)': defaults_launches,
                 'soft-token (round trip)': soft_launches,
                 'rl scst': rl_results['scst'][1], 'rl rloo': rl_results['rloo'][1],
-                'loop': loop_launches, 'phase2': p2_launches}
+                'loop': loop_launches, 'phase2': p2_launches, 'holdout': holdout_launches}
     launches = sum(k1_paths.values())
     k1_bf16_paths = {'bench probes: train, rl and gen': bench_launches,
                      'phase2 bf16': p2_bf16_launches}
@@ -3103,7 +3474,7 @@ def main() -> int:
         'source': 'superconductor_vae_tpu_torch/csrc/decode_attention.cu',
         'replaces': 'superconductor_vae_tpu/ops/pallas_decode.py:80',
         'launches': launches, 'max_abs_err': k1_err,
-        **k1,
+        **k1, 'b2048': k1_b2048,
     }, {
         'name': 'K1 decode_step_attention bf16', 'route': 'cuda',
         'source': 'superconductor_vae_tpu_torch/csrc/decode_attention.cu',

@@ -16,7 +16,7 @@ dtype, as flax's: the parameters are float32 whatever it is
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -333,3 +333,28 @@ class MaterialsEncoder(nn.Module):
             out['competence'][:, None], out['element_count_pred'][:, None],
             out['family_composed_14'],
         ], dim=-1)
+
+
+def predict_tc_mc(encoder: MaterialsEncoder, z: torch.Tensor, seed: int,
+                  n_samples: int = 10) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MC-dropout Tc refinement and uncertainty from latent z: ``n_samples``
+    passes of ``decode`` with dropout on give the mean prediction and the
+    unbiased (ddof=1) std, each [B] in normalized Tc units.
+
+    The passes run as one forward over ``n_samples`` stacked copies of z;
+    the dropout masks come from torch's global stream seeded with ``seed``
+    inside ``fork_rng``, so the caller's stream is left as it was (the
+    train step's ``dropout_seed`` convention).  ``decode`` alone runs in
+    train mode, without gradients, and the encoder gets its mode back."""
+    b = z.shape[0]
+    cuda = [z.device] if z.device.type == 'cuda' else []
+    was_training = encoder.training
+    try:
+        with torch.random.fork_rng(devices=cuda), torch.no_grad():
+            torch.manual_seed(seed)
+            encoder.train()
+            preds = encoder.decode(z.repeat(n_samples, 1))['tc_pred'].float()
+    finally:
+        encoder.train(was_training)
+    preds = preds.reshape(n_samples, b)
+    return preds.mean(dim=0), preds.std(dim=0, correction=1)

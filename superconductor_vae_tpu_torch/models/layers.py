@@ -107,3 +107,16 @@ def cast_weights_once(module: nn.Module):
     finally:
         for m in dense:
             m.frozen = None
+
+
+@contextlib.contextmanager
+def eval_mode(*modules: nn.Module):
+    """The modules in eval mode inside; each back in the mode it had."""
+    modes = [m.training for m in modules]
+    try:
+        for m in modules:
+            m.eval()
+        yield
+    finally:
+        for m, mode in zip(modules, modes):
+            m.train(mode)

@@ -28,7 +28,6 @@ cannot equal JAX's; the seams ``sample_latents``, ``rollouts``,
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import time
@@ -42,6 +41,7 @@ import torch.nn.functional as F
 from ..data.pipeline import DatasetArrays, load_holdout_formulas
 from ..generation import GenerationConfig, generate_with_kv_cache
 from ..generation.latent import element_anchored_blend, perturb, slerp
+from ..models.layers import eval_mode
 from ..ops.constraints import charge_balance_loss, site_occupancy_loss
 from ..ops.round_trip import tokens_to_composition
 from ..tokenizer import BOS_ID, PAD_ID, FractionAwareTokenizer
@@ -97,19 +97,6 @@ def _host_rng(generator: torch.Generator) -> np.random.Generator:
     its host generator from a key the same way)."""
     seed = torch.randint(0, 2 ** 30, (), generator=generator, device=generator.device)
     return np.random.default_rng(int(seed))
-
-
-@contextlib.contextmanager
-def _eval_mode(*modules: torch.nn.Module):
-    """The modules in eval mode inside; each back in the mode it had."""
-    modes = [m.training for m in modules]
-    try:
-        for m in modules:
-            m.eval()
-        yield
-    finally:
-        for m, mode in zip(modules, modes):
-            m.train(mode)
 
 
 class NovelDiscoveryTracker:
@@ -222,7 +209,7 @@ class SelfSupervisedEpoch:
         n_greedy = int(z.shape[0] * self.cfg.greedy_fraction)
         max_len = self.decoder.cfg.max_len
         halves = []
-        with _eval_mode(self.decoder):
+        with eval_mode(self.decoder):
             for rows, gcfg, gen in (
                     (slice(None, n_greedy), GenerationConfig(max_len=max_len, temperature=0.0),
                      None),
@@ -285,7 +272,7 @@ class SelfSupervisedEpoch:
         weight = self._safety_weight(phase2_weight, current_exact)
         rt_mult = (cfg.collapse_rt_weight_mult
                    if self._collapse_remaining > 0 else 1.0)
-        with _eval_mode(self.encoder, self.decoder):
+        with eval_mode(self.encoder, self.decoder):
             z = self.sample_latents(z_cache, generator)
             with torch.no_grad():
                 heads = self.encoder.heads_from_z(z)
@@ -428,7 +415,7 @@ class SelfSupervisedEpoch:
                 torch.optim.AdamW(params, lr=self.lr, betas=ADAM_BETAS, eps=ADAM_EPS,
                                   weight_decay=ADAMW_WEIGHT_DECAY) for params, _ in groups)
         opts = (self._enc_opt, self._dec_opt)
-        with _eval_mode(self.encoder, self.decoder):
+        with eval_mode(self.encoder, self.decoder):
             for opt in opts:
                 opt.zero_grad(set_to_none=True)
             total, aux = self.loss(batch)

@@ -66,6 +66,7 @@ from ..ops.round_trip import round_trip_loss
 from ..ops.theory import theory_loss
 from ..tokenizer import FractionAwareTokenizer
 from ..utils.device import resolve_device
+from ..utils.rng import stream_seed
 from .config import TrainConfig
 from .soft_token import soft_token_forward
 
@@ -303,7 +304,7 @@ def default_dyn(tcfg: TrainConfig) -> Dict[str, float]:
 
 def dropout_seed(seed: int, step: int) -> int:
     """The torch seed of the dropout masks of step ``step``."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+    return stream_seed((seed, step))
 
 
 def rollout_seed(seed: int, step: int) -> int:

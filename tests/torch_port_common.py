@@ -15,6 +15,7 @@ port's eval CLI reads (the card's machine has no Orbax reader):
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 from pathlib import Path
@@ -74,6 +75,17 @@ def set_param_tree(latent_dim: int, seed: int = 2, **kw):
     return _fill(shapes, np.random.default_rng(seed))
 
 
+def fix_rollout_heads(trees):
+    """Random heads end most rollouts at their first step (hard stop or a
+    predicted EOS type); a constant stop probability of 0.018 and a type
+    head that never predicts EOS let them run (chip_smoke.py's
+    ``fix_rollout_heads``, on the numpy trees).  Returns ``trees``."""
+    dec = trees[1]['params']
+    dec['stop_d2']['kernel'][:] = 0.0
+    dec['stop_d2']['bias'][:] = -4.0
+    dec['type_d3']['bias'][4] = -30.0
+    return trees
+
 def batch(cfg: ModelConfig, b: int, seed: int = 1):
     """A numpy eval batch: element slots, magpie, tc and target tokens."""
     rng = np.random.default_rng(seed)
@@ -116,6 +128,81 @@ def export_params_npz(restored, out_path):
             flat['/'.join([root] + [k.key for k in path])] = np.asarray(leaf, np.float32)
     Path(out_path).parent.mkdir(parents=True, exist_ok=True)
     np.savez(out_path, **flat)
+
+
+
+class FedDraws:
+    """The port's random draws, recorded and fed to the JAX package.
+
+    ``recording()`` wraps ``torch.randint`` / ``torch.rand`` /
+    ``torch.randn`` and keeps each result by kind; ``feeding(mp, *modules)``
+    replaces the ``jax`` of each JAX module with a stand-in whose
+    ``jax.random.randint`` / ``uniform`` / ``normal`` return those draws in
+    the order of their kind (``uniform`` as ``minval + (maxval - minval) *
+    u`` in float32, the port's arithmetic), and fails if a shape or a
+    count differs.  Everything else is JAX's own.  Draws inside a
+    ``jax.jit`` are taken once, at tracing: run such code under
+    ``jax.disable_jit()``."""
+
+    KINDS = {'randint': 'randint', 'rand': 'uniform', 'randn': 'normal'}
+
+    def __init__(self):
+        self.queues = {k: [] for k in self.KINDS.values()}
+
+    @contextlib.contextmanager
+    def recording(self):
+        real = {name: getattr(torch, name) for name in self.KINDS}
+
+        def wrap(name):
+            def draw(*args, **kwargs):
+                out = real[name](*args, **kwargs)
+                self.queues[self.KINDS[name]].append(out.detach().cpu().numpy())
+                return out
+            return draw
+        try:
+            for name in real:
+                setattr(torch, name, wrap(name))
+            yield self
+        finally:
+            for name, fn in real.items():
+                setattr(torch, name, fn)
+
+    def _next(self, kind, shape):
+        assert self.queues[kind], f'JAX draws more {kind} values than the port'
+        v = self.queues[kind].pop(0)
+        assert v.shape == tuple(shape), (kind, v.shape, shape)
+        return v
+
+    def exhausted(self) -> bool:
+        return not any(self.queues.values())
+
+    def feeding(self, monkeypatch, *modules):
+        fed = self
+
+        class Random:
+            def __getattr__(self, name):
+                return getattr(jax.random, name)
+
+            def randint(self, key, shape, minval, maxval, dtype=jnp.int32):
+                v = fed._next('randint', shape)
+                assert ((v >= minval) & (v < maxval)).all()
+                return jnp.asarray(v, dtype)
+
+            def uniform(self, key, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0):
+                u = fed._next('uniform', shape)
+                return jnp.asarray(np.float32(minval) + np.float32(maxval - minval) * u, dtype)
+
+            def normal(self, key, shape=(), dtype=jnp.float32):
+                return jnp.asarray(fed._next('normal', shape), dtype)
+
+        class Jax:
+            random = Random()
+
+            def __getattr__(self, name):
+                return getattr(jax, name)
+
+        for module in modules:
+            monkeypatch.setattr(module, 'jax', Jax())
 
 
 if __name__ == '__main__':
