@@ -203,7 +203,7 @@
    with 256 candidates; (c) a greedy decode of a 4,196-row candidate pool
    in chunks of 2048 (the third padded) through K1 against the plain
    attention path (tokens equal up to EOS but at near-ties), 8 of its rows
-   against the CPU, formulas/s; (d) HoldoutSearch.search of 2 targets at
+   against the CPU, formulas/s; (d) HoldoutSearch.search of 1 target at
    budget 2048 with every tier at its default steps, without zoom-in
    rounds (random weights find nothing, so every tier runs): each tier's
    seconds, the inversion's steps/s, the host scoring's seconds; (e) card against CPU from the same
@@ -216,6 +216,28 @@
    --oracle-only, the stream summarised by the port's
    holdout_summarize.  In (b), (c), (d) and (f) K1 runs exactly 12 x the
    decode steps of every rollout and K2 never.
+12d. Surgery phase: models/surgery.py, the migrate CLI, the diagnostics
+   and the legacy models ('surgery' lines).  (a) The e2e phase's seeded
+   run4 models, float32: the decoder deepened by one layer (13) and
+   widened x2 (d_model 1152, ffn 4608, Dh 144), the encoder widened x2;
+   eval_batch on the corpus's first 256 rows through K1 with each decoder:
+   K1 launches = layers x decode steps, the streams equal the original's
+   up to EOS but at near-ties (TIE); TF logits, stop and type logits and
+   the widened encoder's outputs within 1e-4 of the original's; K1 float32
+   at Dh 144, B=256, against its plain version at positions 0, 14, 29 and
+   timed (mean over positions 0-28) beside the plain version, SDPA and the
+   bound.  (b) The seeded models saved as a checkpoint, deepened by
+   scripts/migrate_checkpoint.py, and the eval CLI with --pallas-decode
+   --limit 256 on both (on the corpus's first 4,096 rows): the same exact
+   match.  (c) On that checkpoint with --pallas-decode: order_robust_eval
+   (--limit 256 --k 2), generation_quality (--limit 256), oracle_bisect
+   (--n 32), holdout_inversion_control (2 scrambled, 1 non-SC, budget 64,
+   16 inversion steps, no zoom-in), each with K1 = layers x decode steps and
+   its formulas/s; holdout_campaign over 2 targets in windows of 1 (budget
+   64, no zoom-in) in a subprocess, twice: the first starts two searches,
+   which print their K1 launches, the second none (its shards are cached).
+   (d) BidirectionalVAE.loss, PointerGeneratorDecoder and
+   GroupedFeatureEncoder forward and backward, card against CPU (1e-5).
 13. Prints the kernels' JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -227,6 +249,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gzip
 import json
 import os
 import re
@@ -3083,7 +3106,7 @@ def phase2_standalone_check(torch, dev, per_sub_epoch):
 HOLDOUT_K1_B = 2048               # the discovery decode's chunk (decode_latents chunk=2048)
 HOLDOUT_CANDIDATES = 256          # SuperconductorDiscoveryPipeline.run(n_candidates)
 HOLDOUT_POOL = 2 * HOLDOUT_K1_B + 100    # two full decode chunks and a padded third
-HOLDOUT_TARGETS = 2
+HOLDOUT_TARGETS = 1               # every tier still runs on it; a second target only doubled the time
 HOLDOUT_BUDGET = 2048
 # the search (d) runs without zoom-in rounds: search()'s default, 2, runs
 # each tier three times (87-91 s a target on an H100); the CLI (f), a check
@@ -3108,7 +3131,7 @@ def holdout_phase(torch, dev, ds):
     lines): (a) K1 at B=2048 against its plain version and timed; (b)
     SuperconductorDiscoveryPipeline.run; (c) a chunked greedy decode
     through K1 against the plain attention path and the CPU; (d) a search
-    of two targets with every tier, no zoom-in rounds; (e) the descents' gradients and z, and
+    of one target with every tier, no zoom-in rounds; (e) the descents' gradients and z, and
     predict_tc_mc, card against CPU; (f) the holdout CLI and the stream's
     summary.  Returns K1's launches on the main paths (b), (d) and (f) and
     the B=2048 times."""
@@ -3243,7 +3266,7 @@ def holdout_phase(torch, dev, ds):
     del plain, plain_log, k1_out
     part('(c)')
 
-    # (d) a search of two targets at the default tiers and steps
+    # (d) a search of the first target at the default tiers and steps
     quiet = []
     with Timings(torch, *((search, m) for m in (
             '_candidate_latents', 'head_guided_latents', '_inverse_regression_latents',
@@ -3409,6 +3432,367 @@ def holdout_cli_check(torch, counted):
     return launches + launches_o
 
 
+# -- surgery and diagnostics phase ----------------------------------------------
+
+SURGERY_WIDE = (1152, 4608)       # d_model, dim_feedforward: run4's x2, Dh 144
+SURGERY_DEEPEN = 1
+SURGERY_K1_POSITIONS = (0, 14, 29)
+SURGERY_DIR = ROOT / 'outputs' / 'chip_smoke_surgery'
+SURGERY_CSV_ROWS = 4096           # the diagnostics' corpus: its first rows (each CLI loads it)
+DIAG_ROWS = 256
+CAMPAIGN = ['--n-targets', '2', '--window', '1', '--budget', '64', '--refine-rounds', '0',
+            '--no-guided', '--no-inverse', '--inversion-steps', '8', '--no-oracle']
+SURGERY_TF_ATOL = 1e-4            # function preservation (float32, other summation orders)
+LEGACY_REL = 1e-5                 # legacy models card vs CPU, of the largest magnitude
+
+
+def _counted_cli(torch, what, fn, layers):
+    """``fn()`` (an entry point) with K1's count at 0 just before and read
+    just after; K1 must have run ``layers`` x decode steps of every rollout
+    the call made (eval and discovery decodes).  Returns (out, seconds,
+    launches, rows decoded)."""
+    from superconductor_vae_tpu_torch.generation import discovery
+    from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+    from superconductor_vae_tpu_torch.ops.fused_attention import flash_attention
+    from superconductor_vae_tpu_torch.tokenizer import EOS_ID
+    from superconductor_vae_tpu_torch.training import evaluate
+    with CallLog(evaluate, 'generate_with_kv_cache') as ev, \
+            CallLog(discovery, 'generate_with_kv_cache') as dv:
+        torch.cuda.synchronize()
+        decode_step_attention.launches = 0
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, k2 = decode_step_attention.launches, flash_attention.launches
+    rollouts = ev.outputs + dv.outputs
+    steps = sum(steps_run(o['tokens'], EOS_ID) for o in rollouts)
+    rows = sum(o['tokens'].shape[0] for o in rollouts)
+    print(f'surgery {what}: {secs:.2f} s; {len(rollouts)} rollouts of {rows} rows, {steps} '
+          f'decode steps ({rows / secs:.1f} formulas/s); K1 launches {launches}; K2 {k2}')
+    check(launches == layers * steps and launches > 0,
+          f'surgery {what}: K1 launches {launches} != {layers} x {steps}')
+    check(k2 == 0, f'surgery {what}: K2 launched {k2} times')
+    return out, secs, launches, rows
+
+
+def _surgery_models(torch, dev, cfg, encoder, decoder):
+    """The decoder deepened by SURGERY_DEEPEN layers and widened to
+    SURGERY_WIDE, and the encoder widened x2, on the card, in eval mode."""
+    from superconductor_vae_tpu_torch.models import FormulaDecoder, MaterialsEncoder, surgery
+
+    def loaded(module, sd):
+        module.load_state_dict(sd, strict=True)
+        return module.eval()
+
+    sd = decoder.state_dict()
+    deep = loaded(FormulaDecoder(dataclasses.replace(
+        cfg, num_layers=cfg.num_layers + SURGERY_DEEPEN), device=dev),
+        surgery.deepen_decoder(sd, SURGERY_DEEPEN))
+    wide = loaded(FormulaDecoder(surgery.widened_config(cfg, *SURGERY_WIDE), device=dev),
+                  surgery.expand_decoder_width(sd, cfg, *SURGERY_WIDE))
+    args = (2 * cfg.fusion_dim, tuple(2 * w for w in cfg.encoder_hidden),
+            tuple(2 * w for w in cfg.decoder_hidden))
+    wide_enc = loaded(MaterialsEncoder(surgery.widened_encoder_config(cfg, *args), device=dev),
+                      surgery.expand_encoder_widths(encoder.state_dict(), cfg, *args))
+    return deep, wide, wide_enc
+
+
+def surgery_phase(torch, dev, ds, batches):
+    """Model surgery, the migrate CLI, the diagnostics and the legacy
+    models ('surgery' lines): (a) the seeded run4 decoder deepened by one
+    layer and widened x2 (Dh 144), and the encoder widened x2: greedy
+    streams of 256 corpus rows through K1 equal the original's but at
+    near-ties, K1 = layers x steps, TF logits and the encoder's outputs
+    within SURGERY_TF_ATOL; K1 at Dh 144 against its plain version and
+    timed; (b) migrate_checkpoint deepen on a saved seeded checkpoint and
+    the eval CLI on both through K1; (c) the diagnostics CLIs through K1 on
+    that checkpoint, and the campaign driver twice in a subprocess (the
+    second starts no search); (d) the legacy models' forward and backward,
+    card against CPU.  Returns K1's launches by path and the Dh 144 times."""
+    import shutil
+    import subprocess
+    from superconductor_vae_tpu_torch.checkpoint import (
+        ckpt_skew_transform, save_params_checkpoint)
+    from superconductor_vae_tpu_torch.models import config_from_meta
+    from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+    from superconductor_vae_tpu_torch.tokenizer import EOS_ID, default_tokenizer
+    from superconductor_vae_tpu_torch.training import (
+        build_luts, eval_batch, eval_generation_config, eval_train_config)
+
+    t_phase = time.perf_counter()
+    t_parts = {}
+
+    def part(name):
+        t_parts[name] = time.perf_counter() - t_phase - sum(t_parts.values())
+
+    shutil.rmtree(SURGERY_DIR, ignore_errors=True)
+    SURGERY_DIR.mkdir(parents=True)
+    meta = json.loads(META.read_text())
+    cfg = config_from_meta(meta['model_config'], pallas_decode=True)
+    gcfg = eval_generation_config(eval_train_config(cfg.max_len, meta['eval_gating']),
+                                  cfg.max_len)
+    type_masks = build_luts(default_tokenizer(max_len=cfg.max_len), device=dev)['type_masks']
+    encoder, decoder = seeded_models(torch, dev, cfg)
+    t0 = time.perf_counter()
+    deep, wide, wide_enc = _surgery_models(torch, dev, cfg, encoder, decoder)
+    print(f'surgery (a): deepen +{SURGERY_DEEPEN}, widen to {SURGERY_WIDE} (Dh '
+          f'{wide.cfg.head_dim}), widen the encoder x2: {time.perf_counter() - t0:.1f} s on the '
+          f'host; {sum(p.numel() for p in wide.parameters()) / 1e6:.1f}M decoder parameters')
+    check(wide.cfg.head_dim == 144 and wide.cfg.pos_dim == cfg.d_model, 'surgery (a): wide cfg')
+
+    # (a) greedy streams through K1 on the corpus's first 256 rows
+    batch = batches[0]
+    launches = {}
+    outs = {}
+    for name, dec in (('original', decoder), ('deepened', deep), ('widened', wide)):
+        eval_batch(encoder, dec, batch, gcfg, type_masks=type_masks)    # warm-up
+        torch.cuda.synchronize()
+        decode_step_attention.launches = 0
+        t0 = time.perf_counter()
+        outs[name] = eval_batch(encoder, dec, batch, gcfg, type_masks=type_masks)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = decode_step_attention.launches
+        steps = steps_run(outs[name]['generated'], EOS_ID)
+        print(f'surgery (a): {name} decoder, {dec.cfg.num_layers} layers, d_model '
+              f'{dec.cfg.d_model}: {BATCH} rows in {secs * 1e3:.1f} ms ({BATCH / secs:.0f} '
+              f'formulas/s), {steps} decode steps, K1 launches {n} = {dec.cfg.num_layers} x '
+              f'{steps}')
+        check(n == dec.cfg.num_layers * steps and n > 0,
+              f'surgery (a): {name}: K1 launches {n} != {dec.cfg.num_layers} x {steps}')
+        launches[f'surgery {name}'] = n
+    for name in ('deepened', 'widened'):
+        ties = compare_streams(outs[name], outs['original'], EOS_ID,
+                               f'surgery (a) {name} vs original')
+        print(f'surgery (a): {name} streams equal the original\'s up to EOS; near-tie '
+              f'divergences {ties}')
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    z = torch.randn(BATCH, cfg.latent_dim, generator=gen, device=dev)
+    st = torch.randn(BATCH, cfg.stoich_input_dim, generator=gen, device=dev)
+    hv = torch.randn(BATCH, cfg.heads_input_dim, generator=gen, device=dev)
+    with torch.no_grad():
+        want = decoder(z, batch['tokens'], st, hv)
+        for name, dec in (('deepened', deep), ('widened', wide)):
+            got = dec(z, batch['tokens'], st, hv)
+            errs = {k: float((got[k] - want[k]).abs().max()) for k in (
+                'logits', 'stop_logits', 'type_logits')}
+            print(f'surgery (a): {name} TF heads vs the original: max abs '
+                  + ', '.join(f'{k} {v:.2e}' for k, v in errs.items())
+                  + f' (tol {SURGERY_TF_ATOL})')
+            check(max(errs.values()) <= SURGERY_TF_ATOL, f'surgery (a): {name} TF heads')
+        x = [batch[k] for k in ('element_indices', 'element_fractions', 'element_mask',
+                                'magpie', 'tc')]
+        e0, e1 = encoder(*x), wide_enc(*x)
+        keys = ('z', 'tc_pred', 'sc_pred', 'fraction_pred', 'hp_pred', 'competence',
+                'tc_class_logits', 'magpie_pred', 'family_composed_14')
+        err = max(float((e1[k] - e0[k]).abs().max()) for k in keys)
+        print(f'surgery (a): widened encoder vs the original: max abs {err:.2e} over {keys} '
+              f'(tol {SURGERY_TF_ATOL})')
+        check(err <= SURGERY_TF_ATOL, 'surgery (a): widened encoder outputs')
+    del deep, wide, wide_enc, outs
+    torch.cuda.empty_cache()
+    part('(a) models')
+
+    # K1 at the widened decoder's Dh, float32, B=256
+    worst = max(k1_held(torch, gen, BATCH, cfg.nhead, cfg.max_len, 2 * cfg.head_dim,
+                        torch.float32, p) for p in SURGERY_K1_POSITIONS)
+    print(f'surgery (a): K1 float32 B={BATCH} H={cfg.nhead} T={cfg.max_len} '
+          f'Dh={2 * cfg.head_dim} positions {SURGERY_K1_POSITIONS}: max_abs_err {worst:.3e} '
+          f'(tol {K1_TOL["float32"]}) caches_equal=True')
+    dh144 = k1_position_means(torch, gen, BATCH, cfg.nhead, cfg.max_len, 2 * cfg.head_dim,
+                              torch.float32, 'surgery (a)')
+    part('(a) K1')
+
+    # (b) a saved seeded checkpoint, deepened by the migrate CLI; the eval CLI on both
+    from superconductor_vae_tpu_torch.scripts import evaluate, migrate_checkpoint
+    csv = SURGERY_DIR / 'head.csv'
+    with gzip.open(CSV, 'rt') as fh:
+        csv.write_text(''.join(next(fh) for _ in range(SURGERY_CSV_ROWS + 1)))
+    src = save_params_checkpoint(SURGERY_DIR / 'src', {
+        'enc_params': encoder.state_dict(), 'dec_params': decoder.state_dict()}, {
+        'epoch': 0, 'model_config': dataclasses.asdict(dataclasses.replace(
+            cfg, pallas_decode=False)), 'eval_gating': meta['eval_gating'],
+        'data_norm': {'skew_transform': ckpt_skew_transform(meta)}})
+    del encoder, decoder
+    torch.cuda.empty_cache()
+    deep_ckpt = migrate_checkpoint.main(['deepen', str(src), '--layers', str(SURGERY_DEEPEN),
+                                         '--out', str(SURGERY_DIR / 'deep')])
+    common = ['--pallas-decode', '--csv', str(csv)]
+    evals = {}
+    for name, path, layers in (('source', src, cfg.num_layers),
+                               ('deepened', deep_ckpt, cfg.num_layers + SURGERY_DEEPEN)):
+        evals[name], _, n, _ = _counted_cli(
+            torch, f'(b) eval CLI {name}', lambda: evaluate.main(
+                ['--checkpoint', str(path), '--limit', str(DIAG_ROWS)] + common), layers)
+        launches[f'surgery eval CLI {name}'] = n
+    a, b = evals['source'], evals['deepened']
+    print(f'surgery (b): eval CLI --limit {DIAG_ROWS}: source true-AR {a["true_ar_exact"]} TF '
+          f'{a["tf_exact"]}; deepened true-AR {b["true_ar_exact"]} TF {b["tf_exact"]}')
+    check((a['true_ar_exact'], a['tf_exact'], a['n_evaluated']) ==
+          (b['true_ar_exact'], b['tf_exact'], b['n_evaluated']) and a['n_evaluated'] > 0,
+          'surgery (b): the deepened checkpoint\'s exact match differs from the source\'s')
+    part('(b)')
+
+    # (c) the diagnostics through K1 on the source checkpoint
+    from superconductor_vae_tpu_torch.scripts import (
+        generation_quality, holdout_inversion_control, oracle_bisect, order_robust_eval)
+    from superconductor_vae_tpu_torch.scripts.holdout_search import K1_LINE
+    base = ['--checkpoint', str(src)] + common
+    rates = {}
+    layers = cfg.num_layers
+    out, secs, n, rows = _counted_cli(torch, '(c) order_robust_eval', lambda: order_robust_eval.main(
+        base + ['--limit', str(DIAG_ROWS), '--k', '2']), layers)
+    check({'respelled_ar_exact', 'composition_exact', 'canonical_output_rate', 'z_cosine_mean',
+           'z_cosine_p5'} <= set(out) and out['n_source_rows'] == DIAG_ROWS
+          and 0.0 <= out['z_cosine_p5'] <= out['z_cosine_mean'] <= 1.0 + 1e-6,
+          f'surgery (c): order_robust_eval {out}')
+    print(f'surgery (c): order_robust_eval: {out}')
+    launches['surgery order_robust_eval'], rates['order_robust_eval'] = n, rows / secs
+    out, secs, n, rows = _counted_cli(torch, '(c) generation_quality',
+                                      lambda: generation_quality.main(base + [
+                                          '--limit', str(DIAG_ROWS), '--out',
+                                          str(SURGERY_DIR / 'generation_quality.json')]), layers)
+    check(out['n_evaluated'] > 0 and {'ar_exact', 'error_taxonomy', 'error_validity_rate',
+                                      'error_mean_similarity'} <= set(out),
+          f'surgery (c): generation_quality {out}')
+    print(f'surgery (c): generation_quality: {out}')
+    launches['surgery generation_quality'], rates['generation_quality'] = n, rows / secs
+    out, secs, n, rows = _counted_cli(torch, '(c) oracle_bisect', lambda: oracle_bisect.main(
+        base + ['--n', '32']), layers)
+    check(out['n_requested'] == 32 and 0 < out['n_encoded'] <= 32
+          and 0.0 <= out['train_oracle_exact'] <= 1.0 and 'sample_misses' in out,
+          f'surgery (c): oracle_bisect {out}')
+    print(f'surgery (c): oracle_bisect: train_oracle_exact {out["train_oracle_exact"]} of '
+          f'{out["n_encoded"]}')
+    launches['surgery oracle_bisect'], rates['oracle_bisect'] = n, rows / secs
+    out, secs, n, rows = _counted_cli(torch, '(c) holdout_inversion_control',
+                                      lambda: holdout_inversion_control.main(base + [
+                                          '--n-scrambled', '2', '--n-non-sc', '1',
+                                          '--budget', '64', '--inversion-steps', '16',
+                                          '--refine-rounds', '0',
+                                          '--out', str(SURGERY_DIR / 'control.json')]), layers)
+    s = out['summary']
+    check(s['n_controls'] == 3 and {k: v['n'] for k, v in s['by_kind'].items()} ==
+          {'scrambled': 2, 'mutated_non_sc': 1}, f'surgery (c): inversion control {s}')
+    print(f'surgery (c): holdout_inversion_control: {s["by_kind"]}, hit rate {s["hit_rate"]}')
+    launches['surgery holdout_inversion_control'] = n
+    rates['holdout_inversion_control'] = rows / secs
+    print('surgery (c): formulas/s through K1: '
+          + ', '.join(f'{k} {v:.1f}' for k, v in rates.items()))
+    part('(c) diagnostics')
+
+    # the campaign driver in a subprocess, twice; its searches are
+    # subprocesses that print their own K1 launches
+    cmd = [sys.executable, '-u', '-m', 'superconductor_vae_tpu_torch.scripts.holdout_campaign',
+           *base, *CAMPAIGN, '--out', str(SURGERY_DIR / 'campaign' / 'summary.json')]
+    n_campaign = 0
+    for run in (1, 2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0, f'surgery (c): campaign run {run} exit code '
+              f'{proc.returncode}: {proc.stderr[-3000:]}')
+        counts = [int(line.split()[-1]) for line in proc.stdout.splitlines()
+                  if line.startswith(K1_LINE)]
+        started = [line for line in proc.stdout.splitlines() if line.endswith(': running')]
+        summary = json.loads((SURGERY_DIR / 'campaign' / 'summary.json').read_text())
+        print(f'surgery (c): campaign run {run}: {secs:.1f} s, {len(started)} searches '
+              f'started, their K1 launches {counts}; targets_completed '
+              f'{summary["targets_completed"]}, n_missing {summary["n_missing"]}')
+        check(summary['targets_completed'] == 2 and summary['n_missing'] == 0
+              and len(summary['per_target']) == 2 and 'mean_similarity' in summary,
+              f'surgery (c): campaign summary {summary}')
+        if run == 1:
+            check(len(started) == 2 and len(counts) == 2 and all(c > 0 for c in counts),
+                  f'surgery (c): campaign run 1 started {started}, K1 {counts}')
+            n_campaign = sum(counts)
+        else:
+            check(not started and not counts and proc.stdout.count(': cached') == 2,
+                  f'surgery (c): the second campaign run started a search: {proc.stdout}')
+    launches['surgery campaign (subprocesses)'] = n_campaign
+    part('(c) campaign')
+
+    # (d) the legacy models, card against CPU
+    legacy_check(torch, dev)
+    part('(d)')
+    shutil.rmtree(SURGERY_DIR, ignore_errors=True)
+    print(f'surgery: the phase {time.perf_counter() - t_phase:.1f} s: '
+          + ', '.join(f'{k} {v:.1f} s' for k, v in t_parts.items()))
+    return launches, dh144
+
+
+def legacy_check(torch, dev):
+    """(d) One forward and one backward of BidirectionalVAE.loss (fed noise),
+    PointerGeneratorDecoder and GroupedFeatureEncoder (with its attention
+    map) on the card and on the CPU from the same weights and inputs: the
+    loss and the output within LEGACY_REL of the largest CPU value, every
+    parameter gradient within LEGACY_REL of the model's largest CPU
+    gradient component."""
+    from superconductor_vae_tpu_torch.models.feature_groups import (
+        EXTENDED_GROUP_DIMS, GroupedFeatureEncoder)
+    from superconductor_vae_tpu_torch.models.legacy import (
+        BidirectionalVAE, PointerGeneratorDecoder)
+    gen = torch.Generator().manual_seed(SEED)
+    b = 64
+
+    def vae_loss(m, inputs):
+        x, tc, eps = inputs
+        out = m(x, noise=eps)
+        return m.loss(out, x, tc)['total'], out['recon']
+
+    def pg_loss(m, inputs):
+        src, mask, tgt = inputs
+        out = m(src, mask, tgt)
+        return -out['log_probs'].gather(-1, tgt[..., None]).mean(), out['log_probs']
+
+    def fg_loss(m, inputs):
+        out, attn = m(inputs, return_attention=True)
+        return (out ** 2).mean() + attn.var(), out
+
+    groups = {k: torch.randn(b, d, generator=gen) for k, d in EXTENDED_GROUP_DIMS.items()}
+    groups['experimental'] = None                   # an absent group
+    cases = [
+        ('BidirectionalVAE.loss', lambda d: BidirectionalVAE(device=d), vae_loss,
+         (torch.randn(b, 145, generator=gen), torch.randn(b, generator=gen),
+          torch.randn(b, 64, generator=gen))),
+        ('PointerGeneratorDecoder', lambda d: PointerGeneratorDecoder(4752, device=d), pg_loss,
+         (torch.randint(5, 4752, (b, 12), generator=gen),
+          torch.arange(12)[None, :] < torch.randint(1, 13, (b, 1), generator=gen),
+          torch.randint(0, 4752, (b, 30), generator=gen))),
+        ('GroupedFeatureEncoder', lambda d: GroupedFeatureEncoder(EXTENDED_GROUP_DIMS,
+                                                                  device=d), fg_loss, groups),
+    ]
+    for name, build, loss_fn, inputs in cases:
+        torch.manual_seed(SEED)
+        cpu = build('cpu').eval()
+        card = build(dev).eval()
+        card.load_state_dict(cpu.state_dict())
+        moved = ({k: None if v is None else v.to(dev) for k, v in inputs.items()}
+                 if isinstance(inputs, dict) else tuple(v.to(dev) for v in inputs))
+        results = []
+        for m, inp in ((cpu, inputs), (card, moved)):
+            loss, out = loss_fn(m, inp)
+            loss.backward()
+            results.append((loss, out, {k: p.grad for k, p in m.named_parameters()
+                                        if p.grad is not None}))
+        (l_h, o_h, g_h), (l_c, o_c, g_c) = results
+        check(set(g_h) == set(g_c) and g_h, f'surgery (d): {name}: gradient sets differ')
+        # a gradient that is zero in exact arithmetic (a key bias under the
+        # softmax) holds only rounding noise, so each is held against the
+        # largest gradient of its model
+        g_scale = max(float(g.abs().max()) for g in g_h.values())
+        errs = {'loss': _rel_err(torch, l_c, l_h), 'output': _rel_err(torch, o_c, o_h),
+                'gradients': max(float((g_c[k].cpu() - g_h[k]).abs().max()) for k in g_h)
+                / g_scale}
+        print(f'surgery (d): {name} card vs CPU, of the largest CPU value (gradients: of the '
+              f'model\'s largest gradient component): '
+              + ', '.join(f'{k} {v:.2e}' for k, v in errs.items())
+              + f' over {len(g_h)} parameter gradients (tol {LEGACY_REL})')
+        check(max(errs.values()) <= LEGACY_REL, f'surgery (d): {name} card vs CPU')
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3434,35 +3818,44 @@ def main() -> int:
     print(f'build: {time.perf_counter() - t0:.1f} s')
     build_report(libs, _build.nvcc())
 
-    k1, k1_err = kernel_phase(torch, dev)
-    ds, batches = data_phase(torch, dev)
-    launches, (encoder, decoder), exact = e2e_phase(torch, dev, ds, batches)
-    corpus_launches = corpus_phase(torch, dev, ds, encoder, decoder, exact)
-    spec_launches = spec_phase(torch, dev, ds, batches, encoder, decoder)
+    phase_s = {'build': time.perf_counter() - t0}
+
+    def timed(name, out):
+        phase_s[name] = time.perf_counter() - t_start - sum(phase_s.values())
+        return out
+
+    k1, k1_err = timed('kernel', kernel_phase(torch, dev))
+    ds, batches = timed('data', data_phase(torch, dev))
+    launches, (encoder, decoder), exact = timed('e2e', e2e_phase(torch, dev, ds, batches))
+    corpus_launches = timed('corpus', corpus_phase(torch, dev, ds, encoder, decoder, exact))
+    spec_launches = timed('spec', spec_phase(torch, dev, ds, batches, encoder, decoder))
     del encoder, decoder
     torch.cuda.empty_cache()
-    k2_rows, k2_err, k2_launches = k2_phase(torch, dev)
-    step_rate, _ = train_phase(torch, dev, batches)
-    defaults_launches, _, _ = defaults_phase(torch, dev, batches)
-    soft_launches = soft_token_phase(torch, dev, batches)
-    rl_results = rl_phase(torch, dev, batches)
-    k1_bf16, k1_bf16_err = k1_bf16_phase(torch, dev)
-    bench_launches, _ = bench_phase(torch, dev)
-    loop_launches = loop_phase(torch, dev, ds, step_rate)
-    p2_launches, p2_bf16_launches = phase2_phase(torch, dev, ds)
-    holdout_launches, k1_b2048 = holdout_phase(torch, dev, ds)
+    k2_rows, k2_err, k2_launches = timed('k2', k2_phase(torch, dev))
+    step_rate, _ = timed('train', train_phase(torch, dev, batches))
+    defaults_launches, _, _ = timed('defaults', defaults_phase(torch, dev, batches))
+    soft_launches = timed('soft', soft_token_phase(torch, dev, batches))
+    rl_results = timed('rl', rl_phase(torch, dev, batches))
+    k1_bf16, k1_bf16_err = timed('k1 bf16', k1_bf16_phase(torch, dev))
+    bench_launches, _ = timed('bench', bench_phase(torch, dev))
+    loop_launches = timed('loop', loop_phase(torch, dev, ds, step_rate))
+    p2_launches, p2_bf16_launches = timed('phase2', phase2_phase(torch, dev, ds))
+    holdout_launches, k1_b2048 = timed('holdout', holdout_phase(torch, dev, ds))
+    surgery_launches, k1_dh144 = timed('surgery', surgery_phase(torch, dev, ds, batches))
 
     k1_paths = {'eval': launches, 'eval corpus': corpus_launches,
                 'spec (plain scan)': spec_launches,
                 'defaults (round trip)': defaults_launches,
                 'soft-token (round trip)': soft_launches,
                 'rl scst': rl_results['scst'][1], 'rl rloo': rl_results['rloo'][1],
-                'loop': loop_launches, 'phase2': p2_launches, 'holdout': holdout_launches}
+                'loop': loop_launches, 'phase2': p2_launches, 'holdout': holdout_launches,
+                **surgery_launches}
     launches = sum(k1_paths.values())
     k1_bf16_paths = {'bench probes: train, rl and gen': bench_launches,
                      'phase2 bf16': p2_bf16_launches}
     bf16_launches = sum(k1_bf16_paths.values())
-    print(f'total: {time.perf_counter() - t_start:.1f} s')
+    print(f'total: {time.perf_counter() - t_start:.1f} s; by phase: '
+          + ', '.join(f'{k} {v:.1f} s' for k, v in phase_s.items()))
     print(f'kernels: ["K1 decode_step_attention", "K1 decode_step_attention bf16", '
           f'"K2 flash_attention", "K2 flash_attention bf16"] launches: '
           f'{{"K1 decode_step_attention": {launches} {k1_paths}, '
@@ -3474,7 +3867,7 @@ def main() -> int:
         'source': 'superconductor_vae_tpu_torch/csrc/decode_attention.cu',
         'replaces': 'superconductor_vae_tpu/ops/pallas_decode.py:80',
         'launches': launches, 'max_abs_err': k1_err,
-        **k1, 'b2048': k1_b2048,
+        **k1, 'b2048': k1_b2048, 'dh144': k1_dh144,
     }, {
         'name': 'K1 decode_step_attention bf16', 'route': 'cuda',
         'source': 'superconductor_vae_tpu_torch/csrc/decode_attention.cu',

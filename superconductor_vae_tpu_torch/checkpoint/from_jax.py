@@ -18,6 +18,11 @@ mis-shaped parameter raises.  The physics-Z Magpie projection
 train state's ``set_params`` a ``SetFormulaDecoder`` whose widths are read
 from the tree's shapes.
 
+The legacy modules (models/feature_groups.py, models/legacy.py) load the
+same way (``grouped_feature_encoder_from_jax`` and the functions after
+it); flax's attention keeps its q/k/v kernels as [in, H, Dh] and its
+output kernel as [H, Dh, out], which are flattened to ``Linear`` weights.
+
 A machine without the Orbax reader (tensorstore) takes the trees from an
 npz file instead (``load_params_npz``): one float32 array a leaf, keyed by
 its ``/``-joined path under ``enc_params/``, ``dec_params/`` and, where the
@@ -131,3 +136,92 @@ def params_from_jax(enc_params: Mapping, dec_params: Mapping, cfg: ModelConfig,
     if set_params is not None:
         out += (set_decoder_from_jax(set_params, device, dtype),)
     return out
+
+
+# ---- the legacy modules ------------------------------------------------------------
+
+def _flatten_attention(att: Mapping) -> Dict:
+    """flax MultiHeadDotProductAttention params with the DenseGeneral
+    leaves flattened to Dense ones: q/k/v kernel [in, H, Dh] -> [in, H*Dh],
+    bias [H, Dh] -> [H*Dh]; out kernel [H, Dh, out] -> [H*Dh, out]."""
+    out = {}
+    for name in ('query', 'key', 'value'):
+        k = np.asarray(att[name]['kernel'])
+        out[name] = {'kernel': k.reshape(k.shape[0], -1),
+                     'bias': np.asarray(att[name]['bias']).reshape(-1)}
+    k = np.asarray(att['out']['kernel'])
+    out['out'] = {'kernel': k.reshape(-1, k.shape[-1]), 'bias': np.asarray(att['out']['bias'])}
+    return out
+
+
+def _load(module: nn.Module, params: Mapping, absent_prefixes: Tuple[str, ...] = ()):
+    """Loads a flax tree into ``module``; strict, except that parameters
+    under ``absent_prefixes`` may be missing from the tree (they keep
+    their initial values).  Returns the module in eval mode."""
+    sd = state_dict_from_flax(params)
+    missing, unexpected = module.load_state_dict(sd, strict=False)
+    stray = [k for k in missing if not k.startswith(absent_prefixes)]
+    if stray or unexpected:
+        raise KeyError(f'{type(module).__name__}: missing {stray}, unexpected {unexpected}')
+    return module.eval()
+
+
+def grouped_feature_encoder_from_jax(params: Mapping, group_dims: Mapping[str, int],
+                                     hidden_dim: int = 128, n_heads: int = 4,
+                                     dropout: float = 0.1, device='cuda'):
+    """A flax ``GroupedFeatureEncoder``'s params as the port's module.  A
+    group that the flax module never saw has no params in its tree: the
+    port's module keeps that group's initial ``Linear`` and
+    ``LayerNorm``."""
+    from ..models.feature_groups import GroupedFeatureEncoder
+    if set(params) == {'params'}:
+        params = params['params']
+    tree = dict(params)
+    tree['cross_attention'] = _flatten_attention(params['cross_attention'])
+    absent = tuple(f'{p}_{g}.' for g in group_dims if f'enc_{g}' not in tree
+                   for p in ('enc', 'ln'))
+    return _load(GroupedFeatureEncoder(group_dims, hidden_dim, n_heads, dropout,
+                                       device=device), tree, absent)
+
+
+def expert_attention_head_from_jax(params: Mapping, hidden_dim: int,
+                                   temperature: float = 1.0, device='cuda'):
+    from ..models.feature_groups import ExpertAttentionHead
+    p = params.get('params', params)
+    return _load(ExpertAttentionHead(hidden_dim, temperature,
+                                     in_dim=np.shape(p['key_proj']['kernel'])[0],
+                                     device=device), p)
+
+
+def attentive_expert_from_jax(params: Mapping, hidden_dim: int, output_dim: int = 1,
+                              temperature: float = 1.0, device='cuda'):
+    from ..models.feature_groups import AttentiveExpert
+    p = params.get('params', params)
+    return _load(AttentiveExpert(hidden_dim, output_dim, temperature,
+                                 in_dim=np.shape(p['fc1']['kernel'])[0], device=device), p)
+
+
+def contrastive_feature_encoder_from_jax(params: Mapping, input_dim: int,
+                                         latent_dim: int = 64, hidden_dims=(256, 128),
+                                         temperature: float = 0.07, dropout: float = 0.1,
+                                         device='cuda'):
+    """The encoder and the projection head (flax makes the latter only
+    when its init runs ``encode_project``)."""
+    from ..models.feature_groups import ContrastiveFeatureEncoder
+    return _load(ContrastiveFeatureEncoder(input_dim, latent_dim, hidden_dims, temperature,
+                                           dropout, device=device), params)
+
+
+def bidirectional_vae_from_jax(params: Mapping, feature_dim: int = 145,
+                               hidden_dims=(256, 128), latent_dim: int = 64,
+                               dropout: float = 0.1, device='cuda'):
+    from ..models.legacy import BidirectionalVAE
+    return _load(BidirectionalVAE(feature_dim, tuple(hidden_dims), latent_dim, dropout,
+                                  device=device), params)
+
+
+def pointer_generator_from_jax(params: Mapping, vocab_size: int, d_model: int = 128,
+                               nhead: int = 4, max_src: int = 12, device='cuda'):
+    from ..models.legacy import PointerGeneratorDecoder
+    return _load(PointerGeneratorDecoder(vocab_size, d_model, nhead, max_src,
+                                         device=device), params)

@@ -7,12 +7,14 @@ over a corpus, on the card unless ``--cpu``:
         --params build/run4_params.npz \\
         --meta results/run4/ckpt_snapshot/meta.json
 
-The Orbax snapshot cannot be read without tensorstore, so the weights come
-as an npz file (``checkpoint/from_jax.py`` ``load_params_npz``); the
-``meta.json`` beside the snapshot gives the architecture, the decode gates
+The weights come from a checkpoint in the port's format (``--checkpoint``)
+or, since an Orbax snapshot cannot be read without tensorstore, from an
+npz export of its params (``--params``, ``checkpoint/from_jax.py``
+``load_params_npz``) with the ``meta.json`` beside the snapshot
+(``--meta``); the meta gives the architecture, the decode gates
 (``eval_gating``) and the corpus normalisation (``ckpt_skew_transform``).
-The flags and the summary's keys are those of the JAX package's CLI, which
-takes ``--checkpoint`` instead of ``--params`` and ``--meta``.
+The flags and the summary's keys are otherwise those of the JAX package's
+CLI, whose ``--checkpoint`` takes an Orbax snapshot.
 ``--speculative`` builds an n-gram draft from the evaluated rows' token
 stream (BOS in column 0) and decodes with speculative chunk verification
 (pure greedy, no decode gates); its chunk forward needs the plain cache
@@ -29,11 +31,10 @@ from pathlib import Path
 
 
 def main(argv=None):
+    from superconductor_vae_tpu_torch.scripts.holdout_search import (
+        add_source_args, load_models, parse_source_args, source_name)
     p = argparse.ArgumentParser()
-    p.add_argument('--params', required=True,
-                   help='npz of the encoder and decoder params '
-                        '(enc_params/... and dec_params/... keys)')
-    p.add_argument('--meta', required=True, help="the checkpoint's meta.json")
+    add_source_args(p)
     p.add_argument('--csv',
                    default='data/processed/jarvis_merged.csv.gz')
     p.add_argument('--limit', type=int, default=None)
@@ -46,7 +47,6 @@ def main(argv=None):
     p.add_argument('--batch-size', type=int, default=256)
     p.add_argument('--max-batches', type=int, default=None,
                    help='default: the whole corpus')
-    p.add_argument('--cpu', action='store_true')
     p.add_argument('--errors-out', default=None,
                    help='write per-sample error records JSONL here')
     p.add_argument('--out', default=None, help='write summary JSON here')
@@ -54,27 +54,23 @@ def main(argv=None):
                    help='decode with the n-gram-draft speculative verifier '
                         '(pure greedy, no decode gates) instead of the '
                         'gated KV-cache scan')
-    p.add_argument('--pallas-decode', action='store_true',
-                   help='run the AR decode through K1, the decode-step '
-                        'attention kernel (ModelConfig.pallas_decode)')
-    args = p.parse_args(argv)
+    args = parse_source_args(p, argv)
     if args.speculative and args.pallas_decode:
         p.error('--speculative --pallas-decode: the speculative chunk forward needs the '
                 'plain [L, B, T, H, Dh] cache layout, not the decode-step kernel\'s')
 
     import numpy as np
-    from superconductor_vae_tpu_torch.checkpoint import (
-        ckpt_skew_transform, load_params_npz, params_from_jax)
+    from superconductor_vae_tpu_torch.checkpoint import ckpt_skew_transform
     from superconductor_vae_tpu_torch.data import load_dataset
-    from superconductor_vae_tpu_torch.models import config_from_meta
     from superconductor_vae_tpu_torch.models.draft import build_ngram_draft
     from superconductor_vae_tpu_torch.tokenizer import BOS_ID, default_tokenizer
     from superconductor_vae_tpu_torch.training import (
         build_luts, eval_train_config, evaluate_autoregressive)
+    from superconductor_vae_tpu_torch.utils.device import resolve_device
 
-    device = 'cpu' if args.cpu else 'cuda'
-    meta = json.loads(Path(args.meta).read_text())
-    mcfg = config_from_meta(meta['model_config'], pallas_decode=args.pallas_decode)
+    device = resolve_device('cpu' if args.cpu else 'cuda')
+    encoder, decoder, meta = load_models(args, device)
+    mcfg = decoder.cfg
     tokenizer = default_tokenizer(max_len=mcfg.max_len)
     head_limit = args.limit if args.sample == 'head' else None
     ds = load_dataset(args.csv, max_len=mcfg.max_len, tokenizer=tokenizer,
@@ -93,9 +89,6 @@ def main(argv=None):
     # TrainConfig's default
     tcfg = eval_train_config(mcfg.max_len, meta.get('eval_gating'))
     luts = build_luts(tokenizer, device=device)
-    trees = load_params_npz(args.params)
-    encoder, decoder = params_from_jax(trees['enc_params'], trees['dec_params'], mcfg,
-                                       device=device)
 
     spec_tables = None
     if args.speculative:
@@ -111,7 +104,7 @@ def main(argv=None):
     wall_s = time.perf_counter() - t0
 
     summary = {
-        'checkpoint': str(Path(args.meta).parent),
+        'checkpoint': source_name(args),
         'epoch': meta.get('epoch'),
         'decode_path': ('speculative' if args.speculative
                         else 'k1' if args.pallas_decode else 'plain'),
@@ -136,6 +129,7 @@ def main(argv=None):
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(summary, indent=2))
+    return summary
 
 
 if __name__ == '__main__':

@@ -12,7 +12,8 @@ checkpoint was trained (``ckpt_skew_transform``).  The other flags, the
 JSON written to ``--out`` and the ``--stream`` lines are the JAX CLI's;
 ``--pallas-decode`` decodes through K1, the decode-step attention kernel.
 ``--oracle-only`` skips the search and greedy-decodes each target's direct
-encoding (holdout reconstruction).
+encoding (holdout reconstruction).  The last line printed gives K1's
+launches in the run (``K1_LINE``; 0 without ``--pallas-decode``).
 """
 
 from __future__ import annotations
@@ -25,11 +26,7 @@ from pathlib import Path
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
-    src = p.add_mutually_exclusive_group(required=True)
-    src.add_argument('--checkpoint', help="a checkpoint directory in the port's format")
-    src.add_argument('--params', help='npz of the encoder and decoder params '
-                                      '(enc_params/... and dec_params/... keys)')
-    p.add_argument('--meta', default=None, help="the checkpoint's meta.json (with --params)")
+    add_source_args(p)
     p.add_argument('--csv', default='data/processed/jarvis_merged.csv.gz')
     p.add_argument('--budget', type=int, default=200)
     p.add_argument('--refine-rounds', type=int, default=2,
@@ -40,10 +37,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help='start at this absolute holdout index (split long '
                         'campaigns across processes; a target\'s random '
                         'streams are the same as in one run)')
-    p.add_argument('--cpu', action='store_true', help='run on the CPU (default: the card)')
-    p.add_argument('--pallas-decode', action='store_true',
-                   help='decode through K1, the decode-step attention kernel '
-                        '(ModelConfig.pallas_decode)')
     p.add_argument('--no-guided', action='store_true',
                    help='disable head-guided latent optimization')
     p.add_argument('--no-inverse', action='store_true',
@@ -90,6 +83,42 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+K1_LINE = '[k1] decode_step_attention launches:'
+
+
+def add_source_args(p: argparse.ArgumentParser) -> None:
+    """The weights' sources and the device flags that every decoding CLI
+    of the port takes: ``--checkpoint`` or ``--params`` with ``--meta``,
+    ``--cpu`` and ``--pallas-decode``."""
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument('--checkpoint', help="a checkpoint directory in the port's format")
+    src.add_argument('--params', help='npz of the encoder and decoder params '
+                                      '(enc_params/... and dec_params/... keys)')
+    p.add_argument('--meta', default=None, help="the checkpoint's meta.json (with --params)")
+    p.add_argument('--cpu', action='store_true', help='run on the CPU (default: the card)')
+    p.add_argument('--pallas-decode', action='store_true',
+                   help='decode through K1, the decode-step attention kernel '
+                        '(ModelConfig.pallas_decode)')
+
+
+def parse_source_args(p: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
+    """``p``'s arguments; ``--params`` without ``--meta`` is an error."""
+    args = p.parse_args(argv)
+    if args.params and not args.meta:
+        p.error('--params needs --meta')
+    return args
+
+
+def print_k1_launches(launches0: int) -> int:
+    """Prints the decode-step kernel's launches since ``launches0`` on a
+    line of its own (a campaign driver's subprocesses report theirs so);
+    returns them."""
+    from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+    n = decode_step_attention.launches - launches0
+    print(f'{K1_LINE} {n}', flush=True)
+    return n
+
+
 def load_models(args, device):
     """(encoder, decoder, meta) in eval mode from ``--checkpoint`` or
     ``--params`` / ``--meta``."""
@@ -114,28 +143,40 @@ def load_models(args, device):
     return encoder.eval(), decoder.eval(), meta
 
 
-def main(argv=None):
-    p = build_parser()
-    args = p.parse_args(argv)
-    if args.params and not args.meta:
-        p.error('--params needs --meta')
+def source_name(args) -> str:
+    """The checkpoint a run read: ``--checkpoint``, or ``--meta``'s directory."""
+    return str(args.checkpoint) if args.checkpoint else str(Path(args.meta).parent)
 
+
+def build_pipeline(args, skew_transform=None):
+    """(SuperconductorDiscoveryPipeline, meta) of the CLI's weights on its
+    device, over ``--csv`` normalised as the checkpoint was trained."""
     from superconductor_vae_tpu_torch.checkpoint import ckpt_skew_transform
     from superconductor_vae_tpu_torch.data import load_dataset
-    from superconductor_vae_tpu_torch.data.pipeline import canonical_composition_key
     from superconductor_vae_tpu_torch.generation import SuperconductorDiscoveryPipeline
-    from superconductor_vae_tpu_torch.generation.holdout_search import HoldoutSearch
     from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
     from superconductor_vae_tpu_torch.utils.device import resolve_device
 
     device = resolve_device('cpu' if args.cpu else 'cuda')
     encoder, decoder, meta = load_models(args, device)
-    skew = args.skew_transform or ckpt_skew_transform(meta)
     tokenizer = default_tokenizer(max_len=decoder.cfg.max_len)
     ds = load_dataset(args.csv, max_len=decoder.cfg.max_len, tokenizer=tokenizer,
-                      skew_transform=skew)
-    pipe = SuperconductorDiscoveryPipeline(encoder, decoder, tokenizer, ds,
-                                           type_masks=tokenizer.type_masks)
+                      skew_transform=skew_transform or ckpt_skew_transform(meta))
+    return SuperconductorDiscoveryPipeline(encoder, decoder, tokenizer, ds,
+                                           type_masks=tokenizer.type_masks), meta
+
+
+def main(argv=None):
+    args = parse_source_args(build_parser(), argv)
+
+    from superconductor_vae_tpu_torch.checkpoint import ckpt_skew_transform
+    from superconductor_vae_tpu_torch.data.pipeline import canonical_composition_key
+    from superconductor_vae_tpu_torch.generation.holdout_search import HoldoutSearch
+    from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+
+    launches0 = decode_step_attention.launches
+    pipe, meta = build_pipeline(args, args.skew_transform)
+    skew = args.skew_transform or ckpt_skew_transform(meta)
     search = HoldoutSearch(pipe)
     lo = args.target_offset
     hi = lo + args.n_targets if args.n_targets else len(search.targets)
@@ -176,6 +217,7 @@ def main(argv=None):
         print(json.dumps(summary, indent=2))
         out_path.parent.mkdir(parents=True, exist_ok=True)
         out_path.write_text(json.dumps({'summary': summary, 'results': rows}, indent=2))
+        print_k1_launches(launches0)
         return {'summary': summary, 'results': rows}
 
     results = search.search(budget_per_target=args.budget, targets=targets,
@@ -202,6 +244,7 @@ def main(argv=None):
         'summary': summary,
         'results': [r.__dict__ for r in results],
     }, indent=2))
+    print_k1_launches(launches0)
     return {'summary': summary, 'results': results}
 
 

@@ -380,7 +380,9 @@ def test_evaluate_autoregressive_matches_jax_tiny(case):
 
 
 def test_cli_matches_jax_on_run4(tmp_path):
-    """The port's CLI (``--cpu``, ``--limit 64 --sample stratified``) on
+    """The port's CLI (``--cpu``, ``--limit 64 --sample stratified``, in one
+    batch of 64: the padding of a last batch is held in
+    ``test_evaluate_autoregressive_matches_jax_tiny``) on
     run4's weights, through an npz exported from the snapshot, against the
     JAX package's evaluate_autoregressive on the same rows with the meta's
     gates: the same summary, exact match and error records.  Float metrics
@@ -391,7 +393,7 @@ def test_cli_matches_jax_on_run4(tmp_path):
     npz = tmp_path / 'run4.npz'
     export_params_npz(restored, npz)
     cli.main(['--params', str(npz), '--meta', str(RUN4 / 'meta.json'), '--csv', str(CSV),
-              '--limit', '64', '--sample', 'stratified', '--cpu',
+              '--limit', '64', '--sample', 'stratified', '--cpu', '--batch-size', '64',
               '--out', str(tmp_path / 'summary.json'),
               '--errors-out', str(tmp_path / 'errors.jsonl')])
     got = json.loads((tmp_path / 'summary.json').read_text())
@@ -406,7 +408,7 @@ def test_cli_matches_jax_on_run4(tmp_path):
     tok = jax_tokenizer(max_len=30)
     want = jax_evaluate_mod.evaluate_autoregressive(
         JaxEncoder(jcfg), JaxDecoder(jcfg), restored['enc_params'], restored['dec_params'],
-        ds, tcfg, jax_luts(tok), tokenizer=tok, collect_errors=True)
+        ds, tcfg, jax_luts(tok), tokenizer=tok, batch_size=64, collect_errors=True)
 
     assert got['slice'] == {'sample': 'stratified', 'seed': 0, 'limit': 64}
     assert (got['epoch'], got['decode_path'], got['n_evaluated']) == (899, 'plain', 64)
