@@ -38,8 +38,8 @@
    the plain attention path.  The two token streams must agree except where
    the top two logits were within 1e-4; 8 rows also run on the CPU and
    must agree with the card.
-6. Whole-corpus phase: training/evaluate.py evaluate_autoregressive over
-   all 26,917 kept rows (106 batches of 256, the last padded) through K1,
+6. Corpus phase: training/evaluate.py evaluate_autoregressive over the
+   first 8,192 kept rows (32 batches of 256) through K1,
    with the same weights: formulas/s, the decode steps summed over the
    batches, K1 launched 12 times a decode step, and the first 1,024 rows'
    exact match equal to the e2e phase's.
@@ -107,6 +107,27 @@
    soft-token step timed in turns (samples/s), K1 launched 348 times a
    step (the round trip), every metric finite; one soft-token step of 32
    rows on the card and on the CPU as in the defaults phase's (b).
+8d. Dist phase: data parallelism (superconductor_vae_tpu_torch/parallel)
+   ('dist' lines).  (a) scripts/dryrun_multichip.py's harness in
+   torch.cuda.device_count() NCCL ranks, one a card, then in 2 gloo ranks
+   on this card, each spawned: at run4 width (dropout 0, the set decoder's
+   too) the data-parallel step at TrainConfig(batch_size=256)'s defaults on
+   its shard of each of 3 global batches, and the data-parallel SCST step
+   (rl_w 1) on 2 of them, each against the one-process step that rank 0
+   runs from the same state on the whole batch (metrics within 1e-5
+   relative, the gradient norm 1e-4, as the CPU tests hold them; AdamW
+   moments within 1e-4 of each group's largest, where the CPU tests ask
+   1e-5: the card's float32 GEMMs sum a shard in another order); K1
+   launched 348 times a default step on rank 0, which holds the round
+   trip's 25 rows, and never on the others, and 348 times more a SCST step
+   on every rank, each of which rolls out the whole global batch; every
+   rank's parameters and moments rank 0's; DP and one-process samples/s
+   and SCST seconds.  (b) One step of 32 rows under debug_numerics'
+   checks (utils/debug.py), and a NaN put into a decoder weight raising
+   with that module's name.  (c) A reference-layout decoder state dict at
+   run4 widths through checkpoint/torch_convert.py: TF logits card vs CPU.
+   (d) The native tokenizer and parser (native/, g++) on the corpus's
+   formulas against the Python path, bit-equal, with each one's seconds.
 9. RL phase: the RL train step (training/train_step.py, rl_enabled) at
    run4's widths with weights from a seed, float32, dropout 0.1, K1 in
    the rollouts, bench.py's RL TrainConfig (rl.max_len = max_len, rl_w 1)
@@ -136,7 +157,7 @@
    synthetic data: its train probe (5 steps here, 20 standalone), RL probe
    (SCST, rl_w 1; 1 warm + 1 timed chunk of 8 steps here, 1 + 3
    standalone) and gen probe (greedy with bench.py's gates and early exit,
-   1 + 5 calls) with random heads, as the bench runs them; then RL and gen
+   1 + 3 calls) with random heads, as the bench runs them; then RL and gen
    again with the stop and type heads fixed (every rollout 29 steps), and
    gen casting the weights at every call instead of once a rollout; one
    bf16 train step and one SCST step under the profiler.  Checks (a) the
@@ -152,7 +173,7 @@
    CPU's own bf16-vs-float32 difference; the updates printed beside them.
 12. Loop phase: training/train_loop.py train(), the system's training
    entry point, at run4's architecture (ModelConfig() at the corpus's
-   magpie_dim 78) in float32 with K1 in the rollouts, on the first 2,048
+   magpie_dim 78) in float32 with K1 in the rollouts, on the first 1,024
    rows of the loaded corpus, batch 256, at TrainConfig()'s defaults (the
    set decoder and the round trip on), an eval of 2 batches every epoch and
    a checkpoint every 2: 4 epochs (epoch 1 an SCST epoch, activated by the RL controller's
@@ -171,7 +192,7 @@
    make_epoch_runner under the profiler (the device's busy share) and
    under torch.cuda.set_sync_debug_mode: no operation of the epoch makes
    the host wait for the card, and the one read of its sums does; then
-   runner and per-batch epochs timed in turns.
+   a runner and a per-batch epoch timed (4 steps each).
 12b. Phase-2 phase: training/self_supervised.py at run4's widths with the
    e2e phase's weights and the K1 decoder, float32 unless a step says
    otherwise ('phase2' lines).  (a) K1 against its plain version at Phase
@@ -228,14 +249,14 @@
    timed (mean over positions 0-28) beside the plain version, SDPA and the
    bound.  (b) The seeded models saved as a checkpoint, deepened by
    scripts/migrate_checkpoint.py, and the eval CLI with --pallas-decode
-   --limit 256 on both (on the corpus's first 4,096 rows): the same exact
+   --limit 128 on both (on the corpus's first 4,096 rows): the same exact
    match.  (c) On that checkpoint with --pallas-decode: order_robust_eval
-   (--limit 256 --k 2), generation_quality (--limit 256), oracle_bisect
-   (--n 32), holdout_inversion_control (2 scrambled, 1 non-SC, budget 64,
+   (--limit 128 --k 2), generation_quality (--limit 128), oracle_bisect
+   (--n 8), holdout_inversion_control (2 scrambled, 1 non-SC, budget 64,
    16 inversion steps, no zoom-in), each with K1 = layers x decode steps and
-   its formulas/s; holdout_campaign over 2 targets in windows of 1 (budget
-   64, no zoom-in) in a subprocess, twice: the first starts two searches,
-   which print their K1 launches, the second none (its shards are cached).
+   its formulas/s; holdout_campaign over 1 target in windows of 1 (budget
+   64, no zoom-in) in a subprocess, twice: the first starts its search,
+   which prints its K1 launches, the second none (its shard is cached).
    (d) BidirectionalVAE.loss, PointerGeneratorDecoder and
    GroupedFeatureEncoder forward and backward, card against CPU (1e-5).
 13. Prints the kernels' JSON line, then as its last line
@@ -1106,12 +1127,16 @@ def e2e_phase(torch, dev, ds, batches):
     return launches, (encoder, decoder), _exact_match(gen_all, tgt)
 
 
+CORPUS_EVAL_BATCHES = 32          # 8,192 rows: the smoke's time limit
+
+
 def corpus_phase(torch, dev, ds, encoder, decoder, eval_exact):
-    """training/evaluate.py evaluate_autoregressive over every kept row of
-    the corpus through K1, with the e2e phase's weights and run4's gates, in
-    batches of BATCH (the last padded); K1's count at 0 just before, read
-    just after, must be layers x the decode steps summed over the batches.
-    The first rows' true-AR exact match must equal the e2e phase's."""
+    """training/evaluate.py evaluate_autoregressive over the first
+    CORPUS_EVAL_BATCHES batches of BATCH rows of the corpus through K1,
+    with the e2e phase's weights and run4's gates; K1's count at 0 just
+    before, read just after, must be layers x the decode steps summed over
+    the batches.  The first rows' true-AR exact match must equal the e2e
+    phase's."""
     import numpy as np
     from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
     from superconductor_vae_tpu_torch.tokenizer import EOS_ID, default_tokenizer
@@ -1126,17 +1151,18 @@ def corpus_phase(torch, dev, ds, encoder, decoder, eval_exact):
         decode_step_attention.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = evaluate_autoregressive(encoder, decoder, ds, tcfg, luts, batch_size=BATCH)
+        out = evaluate_autoregressive(encoder, decoder, ds, tcfg, luts, batch_size=BATCH,
+                                      max_batches=CORPUS_EVAL_BATCHES)
         wall = time.perf_counter() - t0        # its results are on the host: synchronised
         launches = decode_step_attention.launches
     steps = [steps_run(o['tokens'], EOS_ID) for o in log.outputs]
     n = out['n_evaluated']
-    print(f'corpus: {n} rows in {len(steps)} batches of {BATCH} (the last padded) through K1 '
+    print(f'corpus: {n} rows in {len(steps)} batches of {BATCH} through K1 '
           f'in {wall:.3f} s = {n / wall:.1f} formulas/s; decode steps summed over the batches '
           f'{sum(steps)}; K1 launches {launches}')
     print(f'corpus: true_ar_exact {out["ar_exact"]:.6f}, tf_exact {out["tf_exact"]:.6f}, '
           f'tc_mae_kelvin {out["tc_mae_kelvin"]:.4f} (random weights)')
-    check(n == len(ds) == CORPUS_ROWS_KEPT, f'evaluated {n} of {len(ds)} rows')
+    check(n == min(len(ds), CORPUS_EVAL_BATCHES * BATCH), f'evaluated {n} of {len(ds)} rows')
     check(len(steps) == -(-n // BATCH), f'{len(steps)} batches for {n} rows')
     check(launches > 0, 'K1 was not launched over the corpus')
     check(launches == cfg.num_layers * sum(steps),
@@ -2059,7 +2085,7 @@ def rollout_checks(torch, dev, cfg, tcfg, state, batch, luts, dyn):
 # gen 1 warm + 5 timed calls)
 BENCH_TRAIN_STEPS = 5
 BENCH_RL_CHUNKS = (1, 1)                  # (warm, timed) chunks of 8 SCST steps
-BENCH_GEN_CALLS = (1, 5)                  # (warm, timed) generate calls
+BENCH_GEN_CALLS = (1, 3)                  # (warm, timed) generate calls
 K1_BF16_B = (512, 1024)                   # the gen probe's rows; the SCST rollout of 512
 # a bf16 near-tie: K1 (float32 inside, one rounding) and the plain path
 # (bf16 scores and probabilities) part where the top two logits are within
@@ -2213,18 +2239,17 @@ def bench_phase(torch, dev):
         print(f'bench: gen ({heads}): {gen_r["calls"]} calls of {n} in {gen_r["seconds"]:.3f} s '
               f'= {gen_r["formulas_per_s"]:.1f} formulas/s; decode steps {gen_r["decode_steps"]}; '
               f'K1 bf16 launches {gen_k1}')
-    # the cost of casting the weights at every decode step: in turns (once,
-    # every call, every call, once), since the host's speed drifts
+    # the cost of casting the weights at every decode step: one of each
     rates = {'once': [], 'every call': []}
-    for how in ('once', 'every call', 'every call', 'once'):
+    for how in ('once', 'every call'):
         with (_patched(generate_module, 'cast_weights_once', contextlib.nullcontext)
               if how == 'every call' else contextlib.nullcontext()):
             r = bench.gen_probe(s, calls=BENCH_GEN_CALLS[1], warm_calls=BENCH_GEN_CALLS[0])
         check(r['decode_steps'] == [cfg.max_len - 1] * BENCH_GEN_CALLS[1],
               f'bench: gen ran {r["decode_steps"]} steps')
         rates[how].append(r['formulas_per_s'])
-    print('bench: gen (heads fixed), weights cast once a rollout against at every call, in '
-          'turns: ' + '; '.join(f'{how} ' + ', '.join(f'{x:.1f}' for x in v) + ' formulas/s'
+    print('bench: gen (heads fixed), weights cast once a rollout against at every call: '
+          + '; '.join(f'{how} ' + ', '.join(f'{x:.1f}' for x in v) + ' formulas/s'
                                 for how, v in rates.items()))
 
     trace_batch(torch, lambda: make_train_step(s.tcfg, s.luts)(
@@ -2399,9 +2424,10 @@ def bf16_step_check(torch, dev):
 
 # -- loop phase -----------------------------------------------------------------
 
-# the first rows of the loaded corpus: 8 steps of 256 an epoch (a default
+# the first rows of the loaded corpus, 4 steps of 256 an epoch (a default
 # step, with its round trip, takes about 0.5 s)
-LOOP_ROWS = 2048
+LOOP_ROWS = 1024
+LOOP_E_ROWS = 512                 # (e)'s epochs: 2 steps, for the smoke's time limit
 LOOP_EPOCHS = (4, 5)              # epochs after the first call, after the resume
 LOOP_DIR = ROOT / 'outputs' / 'chip_smoke_loop'
 
@@ -2714,14 +2740,14 @@ def accumulation_check(torch, dev, cfg):
 
 
 def epoch_runner_check(torch, dev, cfg, sub, st, step_rate):
-    """(e) One teacher-forced epoch of make_epoch_runner (LOOP_ROWS / BATCH
-    steps over the device-resident rows) from the resumed run's state
+    """(e) One teacher-forced epoch of make_epoch_runner (LOOP_E_ROWS /
+    BATCH steps over the device-resident rows) from the resumed run's state
     ``st``, with the host's one read of its metric sums: under the
     profiler, the device's busy share; under the sync debug mode, the
     epoch without its read makes the host wait for the card at no
     operation, and the read does (so the mode sees the copy).  Then epochs
     through the runner and through the per-batch path (a host gather and a
-    copy a step) in turns, timed."""
+    copy a step), one of each, timed."""
     import numpy as np
     from superconductor_vae_tpu_torch.data import WeightedEpochSampler
     from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
@@ -2731,6 +2757,7 @@ def epoch_runner_check(torch, dev, cfg, sub, st, step_rate):
     from superconductor_vae_tpu_torch.training.train_loop import _read_sums
     tcfg = loop_config(cfg)
     luts = build_luts(default_tokenizer(max_len=cfg.max_len), device=dev)
+    sub = sub.subset(np.arange(LOOP_E_ROWS))
     data = _to_device(sub.batch(np.arange(len(sub))), dev)
     sampler = WeightedEpochSampler(np.ones(len(sub)), BATCH, seed=SEED)
     run = make_epoch_runner(tcfg, luts)
@@ -2763,12 +2790,12 @@ def epoch_runner_check(torch, dev, cfg, sub, st, step_rate):
     check(not epoch_syncs, f'loop (e): the epoch made the host wait at {dict(epoch_syncs)}')
     check(sum(read_syncs.values()) >= 1, 'loop (e): the sync debug mode missed the read')
     rates = {'runner': [], 'per batch': []}
-    for i, how in enumerate(('runner', 'per batch', 'per batch', 'runner')):
+    for i, how in enumerate(('runner', 'per batch')):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         (runner_epoch if how == 'runner' else per_batch_epoch)(3 + i)
         rates[how].append(n_steps * BATCH / (time.perf_counter() - t0))
-    print('loop (e): TF epochs in turns: ' + '; '.join(
+    print('loop (e): TF epochs, one of each: ' + '; '.join(
         f'{how} ' + ', '.join(f'{x:.1f}' for x in v) + ' samples/s' for how, v in rates.items())
         + f'; the train phase\'s step alone {step_rate:.1f}')
     del st, data
@@ -3439,8 +3466,10 @@ SURGERY_DEEPEN = 1
 SURGERY_K1_POSITIONS = (0, 14, 29)
 SURGERY_DIR = ROOT / 'outputs' / 'chip_smoke_surgery'
 SURGERY_CSV_ROWS = 4096           # the diagnostics' corpus: its first rows (each CLI loads it)
-DIAG_ROWS = 256
-CAMPAIGN = ['--n-targets', '2', '--window', '1', '--budget', '64', '--refine-rounds', '0',
+DIAG_ROWS = 128                   # the diagnostics' rows: the smoke's time limit
+ORACLE_ROWS = 8                   # oracle_bisect decodes one row a rollout (32 took 20 s)
+CAMPAIGN_TARGETS = 1              # a search subprocess costs 26-35 s: the smoke's time limit
+CAMPAIGN = ['--n-targets', str(CAMPAIGN_TARGETS), '--window', '1', '--budget', '64', '--refine-rounds', '0',
             '--no-guided', '--no-inverse', '--inversion-steps', '8', '--no-oracle']
 SURGERY_TF_ATOL = 1e-4            # function preservation (float32, other summation orders)
 LEGACY_REL = 1e-5                 # legacy models card vs CPU, of the largest magnitude
@@ -3660,8 +3689,8 @@ def surgery_phase(torch, dev, ds, batches):
     print(f'surgery (c): generation_quality: {out}')
     launches['surgery generation_quality'], rates['generation_quality'] = n, rows / secs
     out, secs, n, rows = _counted_cli(torch, '(c) oracle_bisect', lambda: oracle_bisect.main(
-        base + ['--n', '32']), layers)
-    check(out['n_requested'] == 32 and 0 < out['n_encoded'] <= 32
+        base + ['--n', str(ORACLE_ROWS)]), layers)
+    check(out['n_requested'] == ORACLE_ROWS and 0 < out['n_encoded'] <= ORACLE_ROWS
           and 0.0 <= out['train_oracle_exact'] <= 1.0 and 'sample_misses' in out,
           f'surgery (c): oracle_bisect {out}')
     print(f'surgery (c): oracle_bisect: train_oracle_exact {out["train_oracle_exact"]} of '
@@ -3701,15 +3730,18 @@ def surgery_phase(torch, dev, ds, batches):
         print(f'surgery (c): campaign run {run}: {secs:.1f} s, {len(started)} searches '
               f'started, their K1 launches {counts}; targets_completed '
               f'{summary["targets_completed"]}, n_missing {summary["n_missing"]}')
-        check(summary['targets_completed'] == 2 and summary['n_missing'] == 0
-              and len(summary['per_target']) == 2 and 'mean_similarity' in summary,
+        check(summary['targets_completed'] == CAMPAIGN_TARGETS and summary['n_missing'] == 0
+              and len(summary['per_target']) == CAMPAIGN_TARGETS
+              and 'mean_similarity' in summary,
               f'surgery (c): campaign summary {summary}')
         if run == 1:
-            check(len(started) == 2 and len(counts) == 2 and all(c > 0 for c in counts),
+            check(len(started) == len(counts) == CAMPAIGN_TARGETS
+                  and all(c > 0 for c in counts),
                   f'surgery (c): campaign run 1 started {started}, K1 {counts}')
             n_campaign = sum(counts)
         else:
-            check(not started and not counts and proc.stdout.count(': cached') == 2,
+            check(not started and not counts
+                  and proc.stdout.count(': cached') == CAMPAIGN_TARGETS,
                   f'surgery (c): the second campaign run started a search: {proc.stdout}')
     launches['surgery campaign (subprocesses)'] = n_campaign
     part('(c) campaign')
@@ -3793,6 +3825,211 @@ def legacy_check(torch, dev):
         check(max(errs.values()) <= LEGACY_REL, f'surgery (d): {name} card vs CPU')
 
 
+# -- dist phase -----------------------------------------------------------------
+
+N_DIST_STEPS = 3
+N_DIST_RL_STEPS = 2                # the first includes warm-up
+DIST_TOL = dict(rtol=1e-5, atol=1e-7)   # tests/test_torch_port_distributed.py's
+# AdamW moments against the one-process step's: of each group's largest.
+# The CPU tests hold them to 1e-5; on the card float32 GEMMs sum a 128-row
+# shard in another order than the 256-row batch (4.98e-5 measured at gloo
+# world 2 on an H100 80GB HBM3 at 700 W)
+DIST_MOMENT_REL = 1e-4
+DIST_GLOO_WORLD = 2
+
+
+def dist_phase(torch, dev, batches):
+    """Data parallelism (parallel/, the train step's global-batch shares):
+    (a) scripts/dryrun_multichip.py's ``run_dp`` in NCCL ranks, one a card
+    (torch.cuda.device_count()), and in gloo ranks, DIST_GLOO_WORLD of
+    them on this card: at run4 width (dropout 0, the set decoder's too) the
+    DP default step at TrainConfig(batch_size=256)'s defaults for
+    N_DIST_STEPS steps and the DP SCST step (the same with rl_w 1, the
+    rollout heads fixed as in the e2e phase) for N_DIST_RL_STEPS, each
+    against the one-process step that rank 0 runs from the same state
+    (metrics within DIST_TOL, the gradient norm within METRIC_TOL, AdamW
+    moments within DIST_MOMENT_REL of each group's largest, printed by
+    group), every rank's parameters and moments rank 0's; K1 348 launches
+    a step on the rank that holds the round trip (rank 0) and none on the
+    others in the default step, and in the SCST step 348 more on every
+    rank (each rank rolls out the whole global batch); samples/s of the DP
+    steps beside the one-process step's; (b) one step of 32 rows under
+    debug_numerics (utils/debug.py) and a NaN put into a weight raising
+    with its module's name; (c) the reference-checkpoint converter at run4
+    widths: TF logits card vs CPU; (d) the native tokenizer and parser on
+    the corpus's formulas bit-equal to the Python path, host seconds of
+    each.  Returns the K1 launches of the DP steps by world."""
+    import numpy as np
+    import superconductor_vae_tpu_torch.native as native
+    from superconductor_vae_tpu_torch.checkpoint import torch_convert
+    from superconductor_vae_tpu_torch.data import composition_slots, read_csv_rows
+    from superconductor_vae_tpu_torch.models import FormulaDecoder, config_from_meta
+    from superconductor_vae_tpu_torch.ops.rl import RLConfig
+    from superconductor_vae_tpu_torch.scripts import dryrun_multichip
+    from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
+    from superconductor_vae_tpu_torch.training import (
+        TrainConfig, build_luts, create_train_state, default_dyn, make_train_step)
+    from superconductor_vae_tpu_torch.utils.debug import enable_nan_debugging
+
+    meta = json.loads(META.read_text())
+    cfg = config_from_meta(meta['model_config'], pallas_decode=True)
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    cfg0 = config_from_meta(meta['model_config'], pallas_decode=True, dropout=0.0)
+    cases = []
+    for rl_on in (False, True):
+        tcfg = TrainConfig(batch_size=BATCH, rl=RLConfig(max_len=cfg0.max_len))
+        state = no_set_dropout(create_train_state(cfg0, tcfg, seed=SEED, device=dev))
+        if rl_on:
+            fix_rollout_heads(torch, state.decoder)
+        dyn = dict(default_dyn(tcfg), physz_w=float(meta['controllers']['physz']['weight']),
+                   rl_w=1.0 if rl_on else 0.0)
+        cases.append(dryrun_multichip.dp_case(state, tcfg, dyn, rl=rl_on,
+                                              steps=N_DIST_RL_STEPS if rl_on else None))
+        del state
+    job = dict(cases=cases, max_len=cfg0.max_len, seed=SEED, snapshots=False,
+               batches=[{k: v.cpu() for k, v in b.items()} for b in batches[:N_DIST_STEPS]])
+    per_step = cfg.num_layers * (cfg.max_len - 1)
+    rt_rows = max(int(BATCH * TrainConfig().round_trip_subset_fraction), 1)
+    launches = {}
+    for backend, world in (('nccl', torch.cuda.device_count()), ('gloo', DIST_GLOO_WORLD)):
+        name = f'{backend} world {world}'
+        t0 = time.perf_counter()
+        ranks = dryrun_multichip.run_dp(job, world, 'cuda', backend)
+        wall = time.perf_counter() - t0
+        worst = dryrun_multichip.check_dp(ranks, DIST_TOL, METRIC_TOL, DIST_MOMENT_REL,
+                                          f'chip_smoke: dist ({name})')
+        for c, what in enumerate(('default', 'SCST')):
+            for r, res in enumerate(ranks):
+                want = per_step * ((r == 0) + c)
+                got = [s['k1'] for s in res['cases'][c]['step']['steps']]
+                check(got == [want] * len(got),
+                      f'dist ({name}) {what}: rank {r} launched K1 {got} times a step, not '
+                      f'{want}')
+        launches[name] = sum(s['k1'] for res in ranks for case in res['cases']
+                             for s in case['step']['steps'])
+        steps0, rl0 = (ranks[0]['cases'][c]['step']['steps'] for c in (0, 1))
+        print(f'dist ({name}): {world} ranks on {torch.cuda.device_count()} card(s), '
+              f'{N_DIST_STEPS} DP default steps of {BATCH} ({steps0[0]["rows"]} rows a rank) '
+              f'and {N_DIST_RL_STEPS} DP SCST steps, each against the one-process step from the '
+              f'same state: metrics within {DIST_TOL["rtol"]:g} (grad_norm '
+              f'{METRIC_TOL["rtol"]:g}), moments within {worst:.2e} of each group\'s largest '
+              f'(tol {DIST_MOMENT_REL:g}); K1 {per_step} a default step on rank 0 (the round '
+              f'trip\'s {rt_rows} rows), 0 elsewhere, and {per_step} more a SCST step on every '
+              f'rank; parameters and moments equal on every rank; peak '
+              f'{max(r["peak_gib"] for r in ranks):.2f} GiB; the phase part {wall:.1f} s')
+        print(f'dist ({name}): train samples/s by step (the first includes warm-up): DP '
+              + ', '.join(f'{BATCH / s["seconds"]:.1f}' for s in steps0) + '; one process '
+              + ', '.join(f'{BATCH / s["one_seconds"]:.1f}' for s in steps0) + f' [{card}]')
+        print(f'dist ({name}): SCST steps of {BATCH}, seconds by step (the first includes '
+              f'warm-up): DP by rank ' + '; '.join(
+                  f'{r}: ' + ', '.join(f'{s["seconds"]:.3f}' for s in res['cases'][1]['step'][
+                      'steps']) for r, res in enumerate(ranks))
+              + '; one process ' + ', '.join(f'{s["one_seconds"]:.3f}' for s in rl0)
+              + f'; every rank rolls out the gathered [2 x {BATCH}] rows [{card}]')
+        print(f'dist ({name}): default-step moments against the one-process step, of each '
+              f'group\'s largest (group column: step 0, 1, 2): ' + '; '.join(
+                  f'{k} ' + ', '.join(f'{s["moments_worst"][k]:.1e}' for s in steps0)
+                  for k in steps0[0]['moments_worst']))
+
+    # (b) debug_numerics: one step of 32 rows (without the round trip's
+    # rollout, whose ops would each wait for the card), then a NaN put in
+    tcfg = TrainConfig(batch_size=32, use_round_trip=False)
+    luts = build_luts(default_tokenizer(max_len=cfg.max_len), device=dev)
+    state = create_train_state(cfg, tcfg, seed=SEED, device=dev)
+    small = {k: v[:32] for k, v in batches[0].items()}
+    dyn = default_dyn(tcfg)
+    modules = (state.encoder, state.decoder, state.pz_proj, state.set_decoder)
+    dbg = enable_nan_debugging(*modules)
+    try:
+        t0 = time.perf_counter()
+        state, m = make_train_step(tcfg, luts)(state, small, SEED, dyn)
+        dbg_s = time.perf_counter() - t0
+    finally:
+        dbg.remove()
+    check(np.isfinite(m['total'].item()), 'dist (b): a debug step\'s loss is not finite')
+    with torch.no_grad():
+        state.decoder.layer_3.ff2.weight[0, 0] = float('nan')
+    dbg = enable_nan_debugging(*modules)
+    try:
+        make_train_step(tcfg, luts)(state, small, SEED, dyn)
+        raised = ''
+    except FloatingPointError as e:
+        raised = str(e)
+    finally:
+        dbg.remove()
+    check('layer_3.ff2' in raised, f'dist (b): the injected NaN raised {raised!r}')
+    print(f'dist (b): one step of 32 rows (no round trip) under debug_numerics {dbg_s:.2f} s '
+          f'[{card}], loss {m["total"].item():.4f}; a NaN in decoder.layer_3.ff2 raised: '
+          f'{raised}')
+    del state
+    torch.cuda.empty_cache()
+
+    # (c) the reference-checkpoint converter at run4 widths: TF logits
+    rng = np.random.default_rng(SEED)
+    shapes = {k: tuple(v.shape) for k, v in FormulaDecoder(cfg, device='cpu').state_dict().items()}
+    ref_sd = {}
+    for kind, ref, port in torch_convert.decoder_name_map(cfg):
+        ref_sd[f'{ref}.weight'] = torch.from_numpy(
+            rng.standard_normal(shapes[f'{port}.weight']).astype(np.float32) * 0.05)
+        if f'{port}.bias' in shapes:
+            ref_sd[f'{ref}.bias'] = torch.from_numpy(
+                rng.standard_normal(shapes[f'{port}.bias']).astype(np.float32) * 0.05)
+    d = cfg.d_model
+    for i in range(cfg.num_layers):
+        for attn in ('self_attn', 'multihead_attn'):
+            tl = f'transformer_decoder.layers.{i}.{attn}'
+            ref_sd[f'{tl}.in_proj_weight'] = torch.from_numpy(
+                rng.standard_normal((3 * d, d)).astype(np.float32) * 0.05)
+            ref_sd[f'{tl}.in_proj_bias'] = torch.zeros(3 * d)
+    sd = torch_convert.convert_decoder_state(ref_sd, cfg)
+    decs = {}
+    for where in ('cpu', dev):
+        decs[where] = FormulaDecoder(cfg, device=where)
+        decs[where].load_state_dict(sd, strict=True)
+        decs[where].eval()
+    b = 8
+    inputs = (torch.from_numpy(rng.standard_normal((b, cfg.latent_dim)).astype(np.float32)),
+              batches[0]['tokens'][:b].cpu(),
+              torch.from_numpy(rng.random((b, cfg.stoich_input_dim)).astype(np.float32)),
+              torch.from_numpy(rng.standard_normal((b, cfg.heads_input_dim)).astype(np.float32)))
+    with torch.no_grad():
+        want = decs['cpu'](*inputs)['logits']
+        got = decs[dev](*(x.to(dev) for x in inputs))['logits'].cpu()
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    print(f'dist (c): a reference-layout decoder state dict at run4 widths '
+          f'({len(ref_sd)} tensors) through checkpoint/torch_convert.py: TF logits card vs '
+          f'CPU {err:.2e} of the largest (tol {METRIC_TOL["rtol"]:g})')
+    check(err <= METRIC_TOL['rtol'], 'dist (c): converted decoder card vs CPU')
+    del decs
+    torch.cuda.empty_cache()
+
+    # (d) the native tokenizer against the Python path on the corpus
+    formulas = read_csv_rows(CSV)['formula']
+    tok = default_tokenizer(max_len=cfg.max_len)
+    t0 = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_tok = native.tokenize_batch(formulas, tok)
+    n_comp = native.parse_compositions(formulas, tok)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p_tok = tok.encode_batch(formulas)
+    p_comp = composition_slots(formulas)
+    python_s = time.perf_counter() - t0
+    check(np.array_equal(n_tok, p_tok) and all(
+        np.array_equal(a, b) and a.dtype == b.dtype for a, b in zip(n_comp, p_comp)),
+        'dist (d): the native tokenizer or parser differs from the Python path')
+    print(f'dist (d): native tokenizer and parser ({native.library_path().name}, built or '
+          f'found in {build_s:.2f} s) on the {len(formulas)} corpus formulas: {native_s:.3f} s '
+          f'on the host against the Python path\'s {python_s:.3f} s '
+          f'({python_s / native_s:.1f}x) [{card}], tokens and compositions bit-equal; the data '
+          f'phase\'s load_dataset ran the native path and matched the corpus constants')
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3835,6 +4072,7 @@ def main() -> int:
     step_rate, _ = timed('train', train_phase(torch, dev, batches))
     defaults_launches, _, _ = timed('defaults', defaults_phase(torch, dev, batches))
     soft_launches = timed('soft', soft_token_phase(torch, dev, batches))
+    dist_launches = timed('dist', dist_phase(torch, dev, batches))
     rl_results = timed('rl', rl_phase(torch, dev, batches))
     k1_bf16, k1_bf16_err = timed('k1 bf16', k1_bf16_phase(torch, dev))
     bench_launches, _ = timed('bench', bench_phase(torch, dev))
@@ -3847,6 +4085,7 @@ def main() -> int:
                 'spec (plain scan)': spec_launches,
                 'defaults (round trip)': defaults_launches,
                 'soft-token (round trip)': soft_launches,
+                **{f'dist {k} (round trip, SCST rollout)': v for k, v in dist_launches.items()},
                 'rl scst': rl_results['scst'][1], 'rl rloo': rl_results['rloo'][1],
                 'loop': loop_launches, 'phase2': p2_launches, 'holdout': holdout_launches,
                 **surgery_launches}

@@ -21,6 +21,7 @@ from __future__ import annotations
 import csv
 import dataclasses
 import gzip
+import itertools
 import json
 import math
 import re
@@ -142,30 +143,62 @@ def _column(cells: Sequence[str]) -> np.ndarray:
         return col
 
 
-def _read_csv_columns(path: str | Path, n_rows: Optional[int] = None) -> Dict[str, np.ndarray]:
+def _cut_comment(line: str, comment: str) -> str:
+    """``line`` cut at its first ``comment`` character, its line end kept."""
+    cut = line.find(comment)
+    return line if cut < 0 else line[:cut] + line[len(line.rstrip('\r\n')):]
+
+
+def _read_csv_columns(path: str | Path, n_rows: Optional[int] = None, sep: str = ',',
+                      skiprows: int = 0, header: bool = True, comment: Optional[str] = None,
+                      bad_lines: str = 'raise', typed: bool = True) -> Dict[str, np.ndarray]:
     """The columns of a CSV (``.csv`` or ``.csv.gz``), in file order, as
     ``pandas.read_csv`` gives them with its defaults: each float64 if
     numeric (``_column``), else object; blank lines skipped, short rows
-    padded with missing cells.  Only the first ``n_rows`` rows if given."""
+    padded with missing cells.  Only the first ``n_rows`` rows if given.
+
+    The rest are ``read_csv``'s options of the same meaning: ``sep``;
+    ``skiprows`` lines skipped before the header; ``header=False``
+    (``header=None``) names the columns 0, 1, ... after the first row's
+    width; ``comment`` cuts each line at that character, a line left empty
+    being skipped; ``bad_lines='skip'`` (``on_bad_lines='skip'``) drops a
+    row with more fields than the header, where the default raises;
+    ``typed=False`` (``dtype=str``) keeps every column as strings, missing
+    cells NaN."""
     path = Path(path)
     opener = gzip.open if path.suffix == '.gz' else open
     with opener(path, 'rt', newline='') as fh:
-        reader = csv.reader(fh)
-        header = next(reader)
-        rows = []
-        for line, row in enumerate(reader, start=2):
+        # the csv module reads the file's lines as they are (a quoted field
+        # may span lines); a comment is cut from each line, its end kept
+        lines = itertools.islice(fh, skiprows, None)
+        if comment is not None:
+            lines = (_cut_comment(ln, comment) for ln in lines)
+        reader = csv.reader(lines, delimiter=sep)
+        first = next((row for row in reader if row), [])
+        names = first if header else list(range(len(first)))
+        rows = [] if header else [first]
+        for row in reader:
             if n_rows is not None and len(rows) == n_rows:
                 break
             if not row:
                 continue
-            if len(row) > len(header):
-                raise ValueError(f'{path}: line {line} has {len(row)} fields, the header '
-                                 f'{len(header)}')
-            rows.append(row + [''] * (len(header) - len(row)))
-    if len(set(header)) != len(header):
-        raise ValueError(f'{path}: duplicate column names in {header}')
-    cols = list(zip(*rows)) if rows else [()] * len(header)
-    return {name: _column(cells) for name, cells in zip(header, cols)}
+            if len(row) > len(names):
+                if bad_lines == 'skip':
+                    continue
+                raise ValueError(f'{path}: line {skiprows + reader.line_num} has {len(row)} '
+                                 f'fields, the header {len(names)}')
+            rows.append(row + [''] * (len(names) - len(row)))
+    if len(set(names)) != len(names):
+        raise ValueError(f'{path}: duplicate column names in {names}')
+    cols = list(zip(*rows)) if rows else [()] * len(names)
+    if typed:
+        return {name: _column(cells) for name, cells in zip(names, cols)}
+    out = {}
+    for name, cells in zip(names, cols):
+        col = np.empty(len(cells), object)
+        col[:] = [math.nan if c in _NA_CELLS else c for c in cells]
+        out[name] = col
+    return out
 
 
 def read_csv_rows(path: str | Path, n_rows: Optional[int] = None) -> Dict[str, object]:
@@ -407,6 +440,7 @@ def load_dataset(
     skew_transform: str = 'quantile',
     order_augment: int = 0,
     order_augment_seed: int = 0,
+    native: bool = True,
 ) -> DatasetArrays:
     """CSV -> DatasetArrays, as the JAX ``load_dataset`` with
     ``cache_dir=None``.
@@ -420,9 +454,13 @@ def load_dataset(
     jittered transform (run3's and run4's checkpoints), drawn from
     ``default_rng(42)`` one column after another.  ``order_augment=K``
     appends up to K random element-order respellings of every
-    multi-element row, drawn from ``order_augment_seed``."""
-    if magpie_bridge is not None:
-        raise NotImplementedError('magpie_bridge is not ported yet (A.16)')
+    multi-element row, drawn from ``order_augment_seed``.
+    ``magpie_bridge`` (an npz of chem/featurize.py ``fit_magpie_bridge``)
+    maps the CSV's Magpie columns into the reference's layout before the
+    skew transform.  ``native`` tokenizes and parses the formulas with the
+    C++ library (native/, built on first use; a failed build raises), as
+    the JAX loader does; ``native=False`` runs the pure-Python tokenizer
+    and parser, which give the same arrays."""
     tokenizer = tokenizer or default_tokenizer(max_len=max_len)
     rows = read_csv_rows(csv_path)
     formulas, tc_raw, is_sc, hp = rows['formula'], rows['tc'], rows['is_sc'], rows['hp']
@@ -446,6 +484,10 @@ def load_dataset(
         with np.errstate(invalid='ignore'):
             col_means = np.nan_to_num(np.nanmean(magpie, axis=0))
         magpie = np.where(nan_mask, col_means[None, :], magpie)
+
+    if magpie_bridge is not None:
+        from ..chem.featurize import apply_magpie_bridge, load_magpie_bridge
+        magpie = apply_magpie_bridge(magpie, load_magpie_bridge(magpie_bridge))
 
     skewed_idx: List[int] = []
     quantile_grids: Optional[List[np.ndarray]] = None
@@ -474,8 +516,14 @@ def load_dataset(
         tc, is_sc = tc[:limit], is_sc[:limit]
         hp, label, magpie = hp[:limit], label[:limit], magpie[:limit]
 
-    tokens = tokenizer.encode_batch(formulas)
-    elem_idx, elem_frac, elem_mask = composition_slots(formulas)
+    if native:
+        from .. import native as _native
+        tokens = _native.tokenize_batch(formulas, tokenizer)
+        elem_idx, elem_frac, elem_mask = _native.parse_compositions(
+            formulas, tokenizer, MAX_ELEMENTS)
+    else:
+        tokens = tokenizer.encode_batch(formulas)
+        elem_idx, elem_frac, elem_mask = composition_slots(formulas)
     family = np.where(
         is_sc == 1, classify_batch(elem_idx, elem_mask),
         int(SuperconductorFamily.NOT_SUPERCONDUCTOR)).astype(np.int32)
@@ -510,15 +558,22 @@ def load_dataset(
         family=family[keep], comp_targets=comp_targets[keep],
         norm_stats=norm_stats)
     if order_augment > 0:
-        ds = _apply_order_augmentation(ds, tokenizer, order_augment, order_augment_seed)
+        ds = _apply_order_augmentation(ds, tokenizer, order_augment, order_augment_seed,
+                                       native=native)
     return ds
 
 
-def _build_aug_rows(spellings: List[str], tokenizer: FractionAwareTokenizer):
-    """Tokenize respellings and build their appearance-order element slots.
-    Returns (tokens [n, max_len], idx, frac, mask [n, 12], ok [n]) where
-    ``ok`` marks respellings that round-tripped through the tokenizer."""
-    toks = tokenizer.encode_batch(spellings).astype(np.int32)
+def _build_aug_rows(spellings: List[str], tokenizer: FractionAwareTokenizer,
+                    native: bool = True):
+    """Tokenize respellings (with the native tokenizer unless ``native``
+    is False) and build their appearance-order element slots.  Returns
+    (tokens [n, max_len], idx, frac, mask [n, 12], ok [n]) where ``ok``
+    marks respellings that round-tripped through the tokenizer."""
+    if native:
+        from .. import native as _native
+        toks = _native.tokenize_batch(spellings, tokenizer)
+    else:
+        toks = tokenizer.encode_batch(spellings).astype(np.int32)
     n = len(spellings)
     a_idx = np.zeros((n, MAX_ELEMENTS), np.int32)
     a_frac = np.zeros((n, MAX_ELEMENTS), np.float32)
@@ -543,7 +598,7 @@ def _build_aug_rows(spellings: List[str], tokenizer: FractionAwareTokenizer):
 
 
 def resample_order_augmentation(ds: DatasetArrays, tokenizer: FractionAwareTokenizer,
-                                seed: int) -> DatasetArrays:
+                                seed: int, native: bool = True) -> DatasetArrays:
     """Redraws the element-order respelling of every augmented row (same
     row count, same source rows, fresh permutations from ``seed``).  A
     row whose fresh respelling fails to round-trip keeps its previous
@@ -563,7 +618,7 @@ def resample_order_augmentation(ds: DatasetArrays, tokenizer: FractionAwareToken
             spellings.append(join_ordered([parts[i] for i in order]))
         else:
             spellings.append(src_f)
-    toks, a_idx, a_frac, a_mask, ok = _build_aug_rows(spellings, tokenizer)
+    toks, a_idx, a_frac, a_mask, ok = _build_aug_rows(spellings, tokenizer, native)
     tokens = ds.tokens.copy()
     e_idx = ds.element_indices.copy()
     e_frac = ds.element_fractions.copy()
@@ -581,7 +636,7 @@ def resample_order_augmentation(ds: DatasetArrays, tokenizer: FractionAwareToken
 
 
 def _apply_order_augmentation(ds: DatasetArrays, tokenizer: FractionAwareTokenizer,
-                              k: int, seed: int) -> DatasetArrays:
+                              k: int, seed: int, native: bool = True) -> DatasetArrays:
     """Appends up to ``k`` random element-order respellings of every
     multi-element row as rows of their own.  Tokens and element slots
     follow each spelling's appearance order; Tc, Magpie, the labels and
@@ -596,7 +651,7 @@ def _apply_order_augmentation(ds: DatasetArrays, tokenizer: FractionAwareTokeniz
             spellings.append(g)
     if not spellings:
         return ds
-    toks, a_idx, a_frac, a_mask, ok = _build_aug_rows(spellings, tokenizer)
+    toks, a_idx, a_frac, a_mask, ok = _build_aug_rows(spellings, tokenizer, native)
     src = np.asarray(src_rows)[ok]
     return DatasetArrays(
         formulas=ds.formulas + [s for s, o in zip(spellings, ok) if o],

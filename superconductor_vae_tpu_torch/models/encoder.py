@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.global_batch import global_mean
 from ..utils.device import resolve_device
 from .config import ModelConfig
 from .layers import PARAM_DTYPE, Dense, Embed, LayerNorm
@@ -298,7 +299,7 @@ class MaterialsEncoder(nn.Module):
         heads = self._heads(z, dec)
         family = heads.pop('family')
         return {
-            'z': z, 'z_mean': z, 'kl_loss': torch.mean(torch.square(z)),
+            'z': z, 'z_mean': z, 'kl_loss': global_mean(torch.square(z)),
             'attention_weights': enc['attention_weights'],
             'element_embeddings': enc['element_embeddings'],
             'attended_input': dec['attended_input'],

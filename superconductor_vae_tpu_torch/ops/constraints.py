@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..chem.elements import primary_oxidation_state_table
+from ..parallel.global_batch import global_count, global_mean
 from .token_stats import (
     element_amounts, element_counts, integer_subscripts, stream_has_fraction,
 )
@@ -188,7 +189,7 @@ def site_occupancy_loss(
     applies = ((fam[:, None] == site_fam[None, :])
                & (conf[:, None] >= confidence_threshold) & has_site_elem)
     deviation = (site_sums - site_target[None, :]).abs()
-    n = applies.sum().clamp_min(1)
+    n = global_count(applies.sum()).clamp_min(1)
     return (deviation * applies).sum() / n
 
 
@@ -203,4 +204,4 @@ def charge_balance_loss(
     charge = (element_fractions * ox
               * element_mask.to(element_fractions.dtype)).sum(dim=1)
     excess = (charge.abs() - tolerance).clamp_min(0.0)
-    return torch.tanh(excess).mean()
+    return global_mean(torch.tanh(excess))

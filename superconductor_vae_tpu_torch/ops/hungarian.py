@@ -28,6 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.global_batch import global_count, global_mean
+
 _BIG = 1e9
 PAD_COST = 1e4          # the cost of a padded ground-truth column
 
@@ -145,25 +147,24 @@ def hungarian_matching_loss(
     tgt = matched_e.masked_fill(~real, 0)
     nll = -logp.gather(2, tgt[..., None])[..., 0]
     w = torch.full_like(matched_real, no_object_weight).masked_fill(real, 1.0)
-    element_loss = (nll * w).sum() / w.sum().clamp_min(1.0)
+    element_loss = (nll * w).sum() / global_count(w.sum()).clamp_min(1.0)
 
-    frac_l = (((fraction_pred - matched_f) ** 2 * matched_real).sum()
-              / matched_real.sum().clamp_min(1.0))
+    n_real = global_count(matched_real.sum()).clamp_min(1.0)
+    frac_l = ((fraction_pred - matched_f) ** 2 * matched_real).sum() / n_real
 
     pres_logits = presence_logits.float()
     pres_bce = -(matched_real * F.logsigmoid(pres_logits)
                  + (1 - matched_real) * F.logsigmoid(-pres_logits))
-    presence_loss = pres_bce.mean()
+    presence_loss = global_mean(pres_bce)
 
     total = (element_weight * element_loss + fraction_weight * frac_l
              + presence_weight * presence_loss)
 
     pred_e = element_logits.argmax(dim=-1)
-    elem_correct = (((pred_e == matched_e) * matched_real).sum()
-                    / matched_real.sum().clamp_min(1.0))
-    set_exact = (((pred_e == tgt) | ~real)
-                 & ((torch.sigmoid(pres_logits) > 0.5) == real)
-                 ).all(dim=1).float().mean()
+    elem_correct = ((pred_e == matched_e) * matched_real).sum() / n_real
+    set_exact = global_mean((((pred_e == tgt) | ~real)
+                             & ((torch.sigmoid(pres_logits) > 0.5) == real)
+                             ).all(dim=1).float())
     return {
         'total': total, 'element_loss': element_loss,
         'fraction_loss': frac_l, 'presence_loss': presence_loss,

@@ -28,6 +28,8 @@ from ..tokenizer import (
     EOS_ID, FRACTION_TOKEN_START, PAD_ID, TOKEN_TYPE_ELEMENT,
     TOKEN_TYPE_FRACTION, TOKEN_TYPE_INTEGER,
 )
+from ..parallel.global_batch import (gather_rows, gather_rows_grad, global_count,
+                                     global_mean, global_rows, share)
 from .aux_losses import supcon_loss
 from .constraints import charge_balance_loss, site_occupancy_loss
 from .token_stats import is_element_token
@@ -178,11 +180,12 @@ def tc_class_targets(k_true: torch.Tensor, bins) -> torch.Tensor:
 
 def masked_ce(logits: torch.Tensor, targets: torch.Tensor,
               valid: torch.Tensor) -> torch.Tensor:
-    """Mean CE over the valid rows (0 for an empty selection)."""
+    """Mean CE over the valid rows (0 for an empty selection), over the
+    global batch's valid rows under data parallelism."""
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, targets.clamp_min(0)[..., None].long())[..., 0]
     v = valid.float()
-    return (nll * v).sum() / v.sum().clamp_min(1.0)
+    return (nll * v).sum() / global_count(v.sum()).clamp_min(1.0)
 
 
 def bce_logits(logits: torch.Tensor, targets: torch.Tensor,
@@ -249,9 +252,9 @@ def semantic_unit_loss(
     frac_err = stream_err([TOKEN_TYPE_INTEGER, TOKEN_TYPE_FRACTION])
     exact_err = 1.0 - ((pred == targets) | ~mask).all(dim=1).float()
 
-    element_loss = elem_err.mean() * element_penalty
-    fraction_loss = frac_err.mean() * fraction_penalty
-    exact_loss = exact_err.mean() * exact_match_penalty
+    element_loss = global_mean(elem_err) * element_penalty
+    fraction_loss = global_mean(frac_err) * fraction_penalty
+    exact_loss = global_mean(exact_err) * exact_match_penalty
     return {
         'element_loss': element_loss,
         'fraction_loss': fraction_loss,
@@ -284,7 +287,12 @@ def multitask_loss(
     decisions arrive in ``dyn`` (all optional): 'tc_w', 'magpie_w', 'rl_w',
     'physz_w' (absolute weights; physz_w defaults to 0) and 'm_<term>'
     (0/1 skip multipliers for magpie, tc_class, hp, sc, stop, site_dup,
-    family, physics_z)."""
+    family, physics_z).
+
+    Under data parallelism (an active ``parallel.global_batch``) every
+    term and metric is this rank's share: its rows' numerator over the
+    global batch's denominator (``global_mean``, ``global_count``), so
+    that the sums over the ranks are the global batch's values."""
     tokens = batch['tokens']
     targets = tokens[:, 1:]
     logits = dec_out['logits']
@@ -293,7 +301,9 @@ def multitask_loss(
     mask = targets != PAD_ID
     maskf = mask.float()
     is_sc = (batch['is_sc'] == 1).float()
-    sc_any = is_sc.sum().clamp_min(1.0)
+    n_sc = global_count(is_sc.sum())
+    sc_any = n_sc.clamp_min(1.0)
+    n_tok = global_count(maskf.sum())
 
     dyn = dyn or {}
 
@@ -321,26 +331,26 @@ def multitask_loss(
         sample_w = sample_w * (1.0 + cfg.element_count_beta * (
             n_elem - cfg.element_count_base).clamp_min(0.0))
     sc_row_w = torch.where(is_sc > 0, 1.0, cfg.non_sc_formula_weight)
-    formula_ce = (per_sample_ce * sample_w * sc_row_w).mean()
+    formula_ce = global_mean(per_sample_ce * sample_w * sc_row_w)
 
     # ---- Tc stack (SC rows only, scaled by the SC fraction) -----------------
     tc_ps = tc_loss_per_sample(enc_out['tc_pred'], batch['tc'], cfg)
-    tc_loss = (tc_ps * is_sc).mean()
+    tc_loss = global_mean(tc_ps * is_sc)
     k_true = tc_kelvin(batch['tc'], cfg)
     tcc = masked_ce(enc_out['tc_class_logits'],
                     tc_class_targets(k_true, cfg.tc_class_bins), is_sc > 0)
-    tc_class_loss = tcc * (is_sc.sum() / b)
+    tc_class_loss = tcc * (n_sc / global_rows(b))
 
     # ---- Magpie / stoichiometry (SC rows) -----------------------------------
     mg_err = (enc_out['magpie_pred'] - batch['magpie']) ** 2
-    magpie_loss = (mg_err.mean(dim=1) * is_sc).mean()
+    magpie_loss = global_mean(mg_err.mean(dim=1) * is_sc)
 
     em = batch['element_mask'].float()
     st_err = (enc_out['fraction_pred'] - batch['element_fractions']) ** 2 * em
     st_ps = st_err.sum(dim=1) / em.sum(dim=1).clamp_min(1.0)
-    stoich_loss = (st_ps * is_sc).mean()
+    stoich_loss = global_mean(st_ps * is_sc)
     cnt_err = (enc_out['element_count_pred'] - em.sum(dim=1)) ** 2
-    count_loss = (cnt_err * is_sc).mean()
+    count_loss = global_mean(cnt_err * is_sc)
 
     # ---- z regularization ---------------------------------------------------
     kl_loss = enc_out['kl_loss']
@@ -348,35 +358,35 @@ def multitask_loss(
     z_norm_penalty = torch.zeros((), device=dev)
     if cfg.use_z_norm_penalty:
         excess = (torch.linalg.norm(z, dim=1) - cfg.z_norm_target).clamp_min(0.0)
-        z_norm_penalty = (excess ** 2).mean()
+        z_norm_penalty = global_mean(excess ** 2)
 
     # ---- decoder auxiliary heads --------------------------------------------
     stop_t = (targets == EOS_ID).float()
     stop_bce = bce_logits(dec_out['stop_logits'], stop_t)
     if cfg.stop_end_position_weight > 1.0:
         stop_bce = stop_bce * torch.where(stop_t > 0, cfg.stop_end_position_weight, 1.0)
-    stop_loss = (stop_bce * maskf).sum() / maskf.sum().clamp_min(1.0)
+    stop_loss = (stop_bce * maskf).sum() / n_tok.clamp_min(1.0)
 
     type_t = type_table[targets.clamp(0, type_table.shape[0] - 1)]
     type_loss = masked_ce(dec_out['type_logits'], type_t, mask)
     type_pred = dec_out['type_logits'].argmax(dim=-1)
-    type_acc = ((type_pred == type_t) & mask).sum() / mask.sum().clamp_min(1)
+    type_acc = ((type_pred == type_t) & mask).sum() / n_tok.clamp_min(1)
 
     sd_t = site_dup_targets(targets)
     sd_bce = bce_logits(dec_out['site_dup_logits'], sd_t,
                         pos_weight=cfg.site_dup_pos_weight)
-    site_dup_loss = (sd_bce * maskf).sum() / maskf.sum().clamp_min(1.0)
+    site_dup_loss = (sd_bce * maskf).sum() / n_tok.clamp_min(1.0)
 
     # ---- encoder auxiliary heads --------------------------------------------
     # HP: SC rows only, dynamic pos_weight capped at 50
     hp_t = batch['hp'].float()
-    n_pos = (hp_t * is_sc).sum().clamp_min(1.0)
-    n_neg = ((1 - hp_t) * is_sc).sum().clamp_min(1.0)
+    n_pos = global_count((hp_t * is_sc).sum()).clamp_min(1.0)
+    n_neg = global_count(((1 - hp_t) * is_sc).sum()).clamp_min(1.0)
     hp_pw = (n_neg / n_pos).clamp(1.0, 50.0)
     hp_bce = bce_logits(enc_out['hp_pred'], hp_t, pos_weight=hp_pw)
     hp_loss = (hp_bce * is_sc).sum() / sc_any
 
-    sc_loss = bce_logits(enc_out['sc_pred'], is_sc).mean()
+    sc_loss = global_mean(bce_logits(enc_out['sc_pred'], is_sc))
 
     fam = batch['family'].clamp(0, 13).long()
     to_coarse, to_cup, to_iron = _family_tables(dev)
@@ -427,9 +437,11 @@ def multitask_loss(
     )
 
     # SupCon contrastive (static gate: nothing computed when off)
+    # (over the whole batch: every rank computes it on the gathered z)
     if cfg.supcon_weight > 0 and 'label' in batch:
-        total = total + cfg.supcon_weight * supcon_loss(
-            enc_out['z'], batch['label'], cfg.supcon_temperature)
+        total = total + cfg.supcon_weight * share(supcon_loss(
+            gather_rows_grad(enc_out['z']), gather_rows(batch['label']),
+            cfg.supcon_temperature))
 
     # ---- metrics ------------------------------------------------------------
     pred = logits.argmax(dim=-1)
@@ -441,11 +453,11 @@ def multitask_loss(
             cfg.semantic_exact_penalty)['total']
         total = total + cfg.semantic_unit_weight * sem
     correct = (pred == targets) & mask
-    token_acc = correct.sum() / mask.sum().clamp_min(1)
-    exact = (correct | ~mask).all(dim=1).float().mean()
+    token_acc = correct.sum() / n_tok.clamp_min(1)
+    exact = global_mean((correct | ~mask).all(dim=1).float())
     probs = torch.softmax(logits.float(), dim=-1).clamp_min(1e-8)
     ent = (-(probs * torch.log(probs)).sum(dim=-1) * maskf).sum(dim=1)
-    entropy = ent.mean()
+    entropy = global_mean(ent)
 
     metrics = {
         'total': total, 'formula_loss': formula_ce, 'reinforce_loss': rl,

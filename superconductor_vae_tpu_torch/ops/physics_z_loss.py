@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from ..models import physics_z as PZ
+from ..parallel.global_batch import global_mean
 from ..utils.device import resolve_device
 
 
@@ -73,7 +74,7 @@ def _huber(pred: torch.Tensor, target: torch.Tensor,
     """SmoothL1, mean over the batch."""
     d = pred - target
     a = d.abs()
-    return torch.where(a < delta, 0.5 * d * d / delta, a - 0.5 * delta).mean()
+    return global_mean(torch.where(a < delta, 0.5 * d * d / delta, a - 0.5 * delta))
 
 
 def _c(x: torch.Tensor, lo: float = -100.0, hi: float = 100.0) -> torch.Tensor:
@@ -103,7 +104,8 @@ def bcs_consistency(z: torch.Tensor) -> torch.Tensor:
     d0 = z[:, PZ.DELTA0].clamp_min(0.01)
     gap = z[:, PZ.GAP_RATIO]
     loss = _huber(z[:, PZ.XI], _c(vf / d0))
-    return loss + (gap - 5.0).clamp_min(0.0).mean() + (1.0 - gap).clamp_min(0.0).mean()
+    return (loss + global_mean((gap - 5.0).clamp_min(0.0))
+            + global_mean((1.0 - gap).clamp_min(0.0)))
 
 
 def cobordism_consistency(z: torch.Tensor) -> torch.Tensor:
@@ -135,8 +137,8 @@ def thermo_consistency(z: torch.Tensor,
     loss = torch.zeros((), dtype=z.dtype, device=z.device)
     if tc_normalized is not None:
         loss = loss + _huber(z[:, PZ.TC], tc_normalized)
-    loss = loss + (mid - onset).clamp_min(0.0).mean()
-    loss = loss + (zero - mid).clamp_min(0.0).mean()
+    loss = loss + global_mean((mid - onset).clamp_min(0.0))
+    loss = loss + global_mean((zero - mid).clamp_min(0.0))
     return loss + _huber(z[:, PZ.DELTA_TC], onset.detach() - zero.detach())
 
 
@@ -164,14 +166,14 @@ def physics_z_loss(
     """The weighted physics-Z loss and its terms.  ``proj`` is the learnable
     Magpie projection (``init_magpie_proj``), or None for the fixed one."""
     coords, fixed = _device_tables(z.device, magpie.shape[1])
-    comp = ((z[:, coords] - comp_targets) ** 2).mean()
+    comp = global_mean((z[:, coords] - comp_targets) ** 2)
 
     start, end = PZ.block('magpie')
     if proj is not None:
         target = proj(magpie)
     else:
         target = magpie @ fixed                                     # [B, 62]
-    mag = ((z[:, start:end] - target) ** 2).mean()
+    mag = global_mean((z[:, start:end] - target) ** 2)
 
     gl = gl_consistency(z)
     bcs = bcs_consistency(z)

@@ -20,6 +20,12 @@
 - Rewards are the V14 reward (ops/reward.py), the constraint rewards
   (ops/constraints.py) and, at ``novelty_weight > 0``, the batch novelty
   bonus.
+- Under data parallelism (parallel/global_batch.py) every rank runs the
+  rollouts and the rewards on the GLOBAL batch (gathered, without
+  gradient), from the same generator, and keeps its own rows: the samples
+  and the batch-relative novelty bonus are then the one-process run's.
+  The re-score, which carries the gradient, runs on this rank's rows, and
+  the loss and its metrics are this rank's shares.
 
 ``_rollout`` is looked up at call time, so a caller can replace it (the
 tests and chip_smoke.py feed a fixed rollout through it).
@@ -36,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..generation.generate import GenerationConfig, generate_with_kv_cache
 from ..tokenizer import BOS_ID, ELEMENT_TOKEN_START, EOS_ID, INTEGER_TOKEN_START
+from ..parallel.global_batch import gather_rows, global_mean, local_rows, share
 from .constraints import ConstraintConfig, constraint_rewards
 from .reward import RewardConfig, batch_novelty_bonus, compute_reward
 
@@ -225,34 +232,37 @@ def scst_loss(
     """Self-critical sequence training: the greedy rollout is the
     baseline of the sampled one.  Returns (loss, mean reward, entropy,
     {'reward_var'})."""
-    b, t = targets.shape
+    t = targets.shape[1]
     two = lambda x: torch.cat([x, x], dim=0)
     with torch.no_grad():
-        memory = decoder.build_memory(z, stoich, heads_vec)
-        gmask = torch.cat([torch.ones(b, dtype=torch.bool, device=z.device),
-                           torch.zeros(b, dtype=torch.bool, device=z.device)])
-        both = _rollout(decoder, two(z), two(stoich), two(heads_vec), generator,
+        zg, sg, hg = gather_rows(z), gather_rows(stoich), gather_rows(heads_vec)
+        bg = zg.shape[0]
+        memory = decoder.build_memory(zg, sg, hg)
+        gmask = torch.cat([torch.ones(bg, dtype=torch.bool, device=z.device),
+                           torch.zeros(bg, dtype=torch.bool, device=z.device)])
+        both = _rollout(decoder, two(zg), two(sg), two(hg), generator,
                         cfg, luts, greedy=False, temperature=temperature,
                         memory=two(memory), greedy_mask=gmask)
     tokens2 = _pad_to(both['tokens'], t, 0)
     mask2 = _pad_to(both['mask'], t, 0.0)
+    tg = gather_rows(targets)
+    fam = gather_rows(family_predictions) if family_predictions is not None else None
     # rewards per half: the novelty bonus is batch-relative, so the greedy
     # twins must not count as neighbours of the sampled rows
-    g_reward = _total_reward(tokens2[:b], targets, mask2[:b], cfg, luts,
-                             family_predictions)
-    s_tokens, s_mask = tokens2[b:], mask2[b:]
-    s_ent = _pad_to(both['entropy'], t, 0.0)[b:]
-    s_reward = _total_reward(s_tokens, targets, s_mask, cfg, luts, family_predictions)
+    g_reward = _total_reward(tokens2[:bg], tg, mask2[:bg], cfg, luts, fam)
+    s_reward = _total_reward(tokens2[bg:], tg, mask2[bg:], cfg, luts, fam)
+    s_tokens, s_mask = local_rows(tokens2[bg:]), local_rows(mask2[bg:])
+    s_ent = local_rows(_pad_to(both['entropy'], t, 0.0)[bg:])
 
     s_logp = _rescore_remat(decoder, z, stoich, heads_vec, s_tokens, cfg, luts,
                             temperature=temperature)
-    adv = s_reward - g_reward
+    adv = local_rows(s_reward - g_reward)
     per_sample = -(adv * (s_logp * s_mask).sum(dim=1))
     if sc_weight is not None:
         per_sample = per_sample * sc_weight
     seq_ent = _seq_entropy(s_ent, s_mask, position_entropy_w)
-    extras = {'reward_var': s_reward.var(unbiased=False)}
-    return per_sample.mean(), s_reward.mean(), seq_ent.mean(), extras
+    extras = {'reward_var': share(s_reward.var(unbiased=False))}
+    return global_mean(per_sample), share(s_reward.mean()), global_mean(seq_ent), extras
 
 
 def rloo_loss(
@@ -273,26 +283,34 @@ def rloo_loss(
     b, t = targets.shape
     k = cfg.n_samples_rloo
     z_k, stoich_k, heads_k = (x.repeat(k, 1) for x in (z, stoich, heads_vec))
-    fam_k = family_predictions.repeat(k, 1) if family_predictions is not None else None
+    fam = gather_rows(family_predictions) if family_predictions is not None else None
+    fam_k = fam.repeat(k, 1) if fam is not None else None
 
     with torch.no_grad():
-        sample = _rollout(decoder, z_k, stoich_k, heads_k, generator, cfg, luts,
+        zg_k, sg_k, hg_k = (gather_rows(x).repeat(k, 1) for x in (z, stoich, heads_vec))
+        bg = zg_k.shape[0] // k
+        sample = _rollout(decoder, zg_k, sg_k, hg_k, generator, cfg, luts,
                           greedy=False, temperature=temperature)
     s_tokens = _pad_to(sample['tokens'], t, 0)
     s_mask = _pad_to(sample['mask'], t, 0.0)
     s_ent = _pad_to(sample['entropy'], t, 0.0)
-    s_logp = _rescore_remat(decoder, z_k, stoich_k, heads_k, s_tokens, cfg, luts,
-                            temperature=temperature)
-
-    task_r = _total_reward(s_tokens, targets.repeat(k, 1), s_mask, cfg, luts, fam_k)
+    task_r = _total_reward(s_tokens, gather_rows(targets).repeat(k, 1), s_mask, cfg,
+                           luts, fam_k)
     seq_ent = _seq_entropy(s_ent, s_mask, position_entropy_w)
     ent_w = cfg.entropy_weight if entropy_weight is None else entropy_weight
-    r = (task_r + ent_w * seq_ent).reshape(k, b)
-    lp = (s_logp * s_mask).sum(dim=1).reshape(k, b)
+    r = (task_r + ent_w * seq_ent).reshape(k, bg)
     baseline = (r.sum(dim=0, keepdim=True) - r) / max(k - 1, 1)
-    per_sample = -((r - baseline) * lp)                             # [K, B]
+    adv = local_rows((r - baseline).T).T                            # [K, B]
+    if bg != b:
+        # this rank's rows of each sample block
+        s_tokens, s_mask = (local_rows(x.reshape(k, bg, t).transpose(0, 1))
+                            .transpose(0, 1).reshape(k * b, t) for x in (s_tokens, s_mask))
+    s_logp = _rescore_remat(decoder, z_k, stoich_k, heads_k, s_tokens, cfg, luts,
+                            temperature=temperature)
+    lp = (s_logp * s_mask).sum(dim=1).reshape(k, b)
+    per_sample = -(adv * lp)                                        # [K, B]
     if sc_weight is not None:
         per_sample = per_sample * sc_weight[None, :]
     # each sample contributes its own gradient: the sum over K of per-K means
-    extras = {'reward_var': task_r.var(unbiased=False)}
-    return per_sample.mean(dim=1).sum(), r.mean(), seq_ent.mean(), extras
+    extras = {'reward_var': share(task_r.var(unbiased=False))}
+    return share(per_sample.mean(dim=1).sum()), share(r.mean()), share(seq_ent.mean()), extras

@@ -21,7 +21,7 @@ as JAX's ``encode`` and ``decode`` default to ``deterministic``.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -57,10 +57,14 @@ def round_trip_loss(
     z_weight: float = 1.0,
     tc_weight: float = 5.0,
     max_len: int = 30,
+    global_subset: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """Returns {'round_trip_loss', 'z_mse', 'tc_mse'} over the first
     ``subset`` rows (a fixed subset size, the reference's
-    ``subset_fraction``), and the rollout's ``tokens``."""
+    ``subset_fraction``), and the rollout's ``tokens``.  Under data
+    parallelism ``subset`` counts this rank's rows of the global batch's
+    first ``global_subset``, and the means are this rank's shares of the
+    means over all ``global_subset``."""
     zs = z[:subset]
     gcfg = GenerationConfig(max_len=max_len, temperature=0.0)
     gen = generate_with_kv_cache(decoder, zs.detach(), stoich[:subset].detach(),
@@ -80,6 +84,8 @@ def round_trip_loss(
 
     z_mse = ((z2 - zs) ** 2).mean()
     tc_mse = ((tc2 - tc_pred[:subset]) ** 2).mean()
+    if global_subset is not None:
+        z_mse, tc_mse = (m * (subset / global_subset) for m in (z_mse, tc_mse))
     return {
         'round_trip_loss': z_weight * z_mse + tc_weight * tc_mse,
         'z_mse': z_mse, 'tc_mse': tc_mse, 'tokens': gen['tokens'],

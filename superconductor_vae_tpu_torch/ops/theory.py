@@ -18,6 +18,7 @@ from typing import Dict
 import torch
 
 from ..models.family_classifier import SuperconductorFamily as F
+from ..parallel.global_batch import global_mean
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +92,7 @@ def theory_loss(
     org = torch.where(fam == F.ORGANIC, soft_excess(tc, cfg.organic_tc_cap), zero)
 
     per_family = {
-        'bcs': bcs.mean(), 'cuprate': cup.mean(), 'iron': iron.mean(),
-        'heavy_fermion': hf.mean(), 'organic': org.mean(),
+        'bcs': global_mean(bcs), 'cuprate': global_mean(cup), 'iron': global_mean(iron),
+        'heavy_fermion': global_mean(hf), 'organic': global_mean(org),
     }
     return {'total': sum(per_family.values()), **per_family}

@@ -20,15 +20,19 @@ with ``--resume <dir>`` and the new config read it.  Its ``meta.json``
 keeps the source's epoch and, unlike the JAX CLI (which writes
 ``TrainConfig()``'s), the source's ``eval_gating`` and ``data_norm``, so
 that the migrated model decodes and reads the corpus as the source did.
-``from-torch`` (a reference PyTorch checkpoint) needs
-checkpoint/torch_convert.py, which the port does not have yet: it refuses.
+``from-torch`` converts a reference PyTorch checkpoint
+(checkpoint/torch_convert.py) into a params-only checkpoint at
+``<out>/converted`` (the JAX CLI's tag), its model config detected from
+the weights' shapes and the learnable physics-Z projection kept where the
+reference saved it:
+
+    ... from-torch ckpt.pt --out outputs/converted
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import sys
 from pathlib import Path
 
 
@@ -72,16 +76,26 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> Path:
     args = build_parser().parse_args(argv)
-    if args.cmd == 'from-torch':
-        sys.exit('migrate_checkpoint from-torch: converting a reference PyTorch '
-                 'checkpoint needs checkpoint/torch_convert.py, which the port does not '
-                 'have yet (ROADMAP A.16)')
-
     from superconductor_vae_tpu_torch.checkpoint import (
         build_manifest, load_checkpoint, save_params_checkpoint)
     from superconductor_vae_tpu_torch.models import config_from_meta
     from superconductor_vae_tpu_torch.models import surgery
     from superconductor_vae_tpu_torch.training import TrainConfig
+
+    if args.cmd == 'from-torch':
+        from superconductor_vae_tpu_torch.checkpoint.torch_convert import (
+            load_torch_checkpoint)
+        enc, dec, mcfg, tmeta = load_torch_checkpoint(args.checkpoint)
+        payload = {'step': 0, 'enc_params': enc, 'dec_params': dec}
+        if 'pz_params' in tmeta:
+            payload['pz_params'] = tmeta.pop('pz_params')
+        meta2 = {'epoch': int(tmeta.get('epoch', 0)), 'metrics': tmeta,
+                 'model_config': dataclasses.asdict(mcfg),
+                 'manifest': build_manifest(mcfg, TrainConfig()), 'controllers': {}}
+        path = save_params_checkpoint(Path(args.out) / 'converted', payload, meta2)
+        print(f'converted torch checkpoint -> {path} (detected d_model={mcfg.d_model} '
+              f'num_layers={mcfg.num_layers} vocab_size={mcfg.vocab_size})')
+        return path
 
     restored, meta = load_checkpoint(args.checkpoint)
     mcfg = config_from_meta(meta['model_config'])

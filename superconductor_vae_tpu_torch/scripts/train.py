@@ -10,6 +10,17 @@ The flags are the JAX CLI's; ``--set KEY=VALUE`` overrides any
 included.  ``--csv`` defaults to the repo's corpus,
 data/processed/jarvis_merged.csv.gz.  ``train_resilient.py`` relaunches
 this CLI after a crash or a stall.
+
+Data-parallel over N cards (or N CPU processes with ``--cpu``, over
+gloo): launch it with ``torchrun``, which sets ``RANK``, ``WORLD_SIZE``
+and ``LOCAL_RANK``; each rank joins the group (NCCL on the cards), takes
+``cuda:<LOCAL_RANK>`` and its shard of every global batch of
+``--batch-size`` rows, and rank 0 writes the log, the CSV and the
+checkpoints (training/train_loop.py):
+
+    torchrun --standalone --nproc_per_node=4 -m superconductor_vae_tpu_torch.scripts.train
+
+With one process it runs as it always has.
 """
 
 from __future__ import annotations
@@ -50,7 +61,12 @@ def main(argv=None):
                         '--set rl_reactivation_min_exact=0.85')
     args = p.parse_args(argv)
 
+    import os
+
+    import torch
+
     from superconductor_vae_tpu_torch.models.config import ModelConfig, tiny_test_config
+    from superconductor_vae_tpu_torch.parallel import init_distributed
     from superconductor_vae_tpu_torch.training import TrainConfig, train
 
     tcfg = TrainConfig()
@@ -86,18 +102,27 @@ def main(argv=None):
         mcfg = dataclasses.replace(mcfg or ModelConfig(max_len=tcfg.max_formula_len),
                                    pallas_decode=True)
 
-    out = train(
-        csv_path=None if args.synthetic else args.csv,
-        model_config=mcfg,
-        train_config=tcfg,
-        output_dir=args.output,
-        limit=args.limit,
-        device='cpu' if args.cpu else 'cuda',
-    )
+    device = 'cpu' if args.cpu else 'cuda'
+    distributed = int(os.environ.get('WORLD_SIZE', 1)) > 1
+    if distributed:
+        device = init_distributed(device)
+    try:
+        out = train(
+            csv_path=None if args.synthetic else args.csv,
+            model_config=mcfg,
+            train_config=tcfg,
+            output_dir=args.output,
+            limit=args.limit,
+            device=device,
+        )
+    finally:
+        if distributed:
+            torch.distributed.destroy_process_group()
     final = out['history'][-1]
-    print(f"done: exact={final['exact_match']:.3f} "
-          f"true_ar={final['true_ar_exact']:.3f} "
-          f"throughput={final['samples_per_s']}/s")
+    if int(os.environ.get('RANK', 0)) == 0:
+        print(f"done: exact={final['exact_match']:.3f} "
+              f"true_ar={final['true_ar_exact']:.3f} "
+              f"throughput={final['samples_per_s']}/s")
     return out
 
 

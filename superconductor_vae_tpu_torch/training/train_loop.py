@@ -13,9 +13,31 @@ checkpoint, the metrics CSV, and full-state checkpoints with resume,
 manifest drift and auto-migration; SIGINT and SIGTERM save an 'interrupt'
 checkpoint.
 
+Data parallelism: in a process of a ``torch.distributed`` group of more
+than one rank (``torchrun``; ``parallel.init_distributed``) the loop runs
+data-parallel, as JAX's does over a mesh (``make_mesh()`` whenever it sees
+more than one device) and across hosts (each keeping its shard of the
+global batch).  Every rank draws the same global batches from the sampler
+and keeps its contiguous block (``batch_size`` must divide by the world
+size); the step sums the global batch's shares of every loss over the
+ranks (training/train_step.py), so every rank holds the same parameters
+and the same global metrics, and the controllers take the same decisions.
+The eval, the Tc-bin tracker, Phase 2, the latent cache, topology, the
+metrics CSV, the checkpoints and the log run on rank 0, which broadcasts
+what they decide (the AR exact match, the sampling weights, the
+per-position entropy weights, and the parameters when it changed them).
+A SIGINT or SIGTERM on any rank makes rank 0 save one 'interrupt'
+checkpoint and every rank stop; a resume reads it on every rank, at the
+same world size.
+
+``TrainConfig.debug_numerics`` turns on the NaN/Inf sanitizer
+(utils/debug.py) and, as in JAX, one dispatch a step: the epoch runner is
+off.
+
 Differences from the JAX loop:
-- it runs on ``device`` ('cuda' unless the caller asks for the CPU) and
-  has no mesh (multi-GPU is A.16), so there is no ``use_mesh``;
+- it runs on ``device`` ('cuda' unless the caller asks for the CPU); a
+  data-parallel run uses the process group it finds, so there is no
+  ``use_mesh``;
 - RL epochs run the same per-step runner as teacher-forced ones (the JAX
   loop scans RL steps in chunks only to keep an XLA program small);
 - every step gets the seed ``tcfg.seed + 1``, and its dropout masks and
@@ -27,8 +49,8 @@ Differences from the JAX loop:
 - Phase 2 draws from a generator seeded from ``tcfg.seed`` and the epoch
   (``phase2_seed``), not from the step seeds; its optimizers, as JAX's,
   are in no checkpoint, so a resume starts them afresh;
-- options whose parts are not ported raise ``NotImplementedError`` naming
-  their slice: ``debug_numerics`` (A.16).
+- under data parallelism the dataset stays on every rank's device and the
+  epoch runner runs (JAX's multi-host loop feeds batches from the host).
 """
 
 from __future__ import annotations
@@ -50,9 +72,12 @@ from ..checkpoint import (auto_migrate, check_manifest_drift, latest_checkpoint,
 from ..checkpoint.io import PAYLOAD
 from ..data import (DatasetArrays, WeightedEpochSampler, compute_sample_weights,
                     load_dataset, resample_order_augmentation, synthetic_dataset)
+from ..data.sampler import shard_batch_indices
 from ..generation.latent_analyzer import LatentSpaceAnalyzer
 from ..models.config import ModelConfig
+from ..parallel import all_reduce_sum_, broadcast_object, replicate, world
 from ..tokenizer import default_tokenizer
+from ..utils.debug import enable_nan_debugging
 from ..utils.device import resolve_device
 from .config import TrainConfig
 from .evaluate import _to_device, evaluate_autoregressive
@@ -74,12 +99,8 @@ _AUG_KEYS = ('tokens', 'element_indices', 'element_fractions', 'element_mask')
 
 
 def check_loop_supported(tcfg: TrainConfig) -> None:
-    """Raises ``NotImplementedError`` for the loop's options that are not
-    ported, naming their slices, and ``ValueError`` for a compute dtype
-    other than float32 or bfloat16."""
-    if tcfg.debug_numerics:
-        raise NotImplementedError('train: debug_numerics (the NaN/Inf sanitizer: the '
-                                  'utilities slice, A.16) is not ported yet')
+    """Raises ``ValueError`` for a compute dtype other than float32 or
+    bfloat16."""
     compute_dtype(tcfg)
 
 
@@ -108,9 +129,15 @@ def train(
     ``output_dir``.  Returns the state, the models, the dataset, the
     history (one row an epoch, the CSV's), the LUTs, the model config,
     the tokenizer and the controllers' state as a checkpoint's meta holds
-    it."""
+    it.  In a ``torch.distributed`` group of more than one rank the run is
+    data-parallel (see the module's docstring); ``device`` is this rank's."""
+    rank, n_ranks = world()
+    group = torch.distributed.group.WORLD if n_ranks > 1 else None
+    main = rank == 0
     if log_fn is None:
         log_fn = lambda *a, **k: print(*a, flush=True, **k)  # noqa: E731
+    if not main:
+        log_fn = lambda *a, **k: None  # noqa: E731
     tcfg = train_config or TrainConfig()
     check_loop_supported(tcfg)
     device = resolve_device(device)
@@ -145,27 +172,34 @@ def train(
         oversample_hard=tcfg.oversample_hard_sequences,
         oversample_high_tc=tcfg.oversample_high_tc)
     batch_size = min(tcfg.batch_size, len(ds))
+    if batch_size % n_ranks:
+        raise ValueError(f'train: batch size {batch_size} does not divide over '
+                         f'{n_ranks} ranks')
     sampler = WeightedEpochSampler(weights, batch_size=batch_size, seed=tcfg.seed)
 
     # ---- models / state ----------------------------------------------------
     state = create_train_state(mcfg, tcfg, seed=tcfg.seed, device=device)
+    modules = (state.encoder, state.decoder, state.pz_proj, state.set_decoder)
     luts = build_luts(tokenizer, device=device)
     step_seed = tcfg.seed + 1
     steps, runners = {}, {}
 
     def get_step(rl_enabled: bool):
         if rl_enabled not in steps:
-            steps[rl_enabled] = make_train_step(tcfg, luts, rl_enabled=rl_enabled)
+            steps[rl_enabled] = make_train_step(tcfg, luts, rl_enabled=rl_enabled,
+                                                group=group)
         return steps[rl_enabled]
 
     def get_epoch_runner(rl_enabled: bool):
         if rl_enabled not in runners:
-            runners[rl_enabled] = make_epoch_runner(tcfg, luts, rl_enabled=rl_enabled)
+            runners[rl_enabled] = make_epoch_runner(tcfg, luts, rl_enabled=rl_enabled,
+                                                    group=group)
         return runners[rl_enabled]
 
     # the whole dataset on the device, each epoch's batches gathered there
+    # (the sanitizer runs one dispatch a step instead)
     data_dev = (_to_device(ds.batch(np.arange(len(ds))), device)
-                if tcfg.device_resident_data else None)
+                if tcfg.device_resident_data and not tcfg.debug_numerics else None)
 
     # ---- controllers -------------------------------------------------------
     rl_ctl = RLController(tcfg)
@@ -182,11 +216,11 @@ def train(
     curriculum = None
     if tcfg.curriculum_ar_enabled:
         curriculum = CurriculumScheduler((ds.tokens != 0).sum(axis=1))
-    topo = TopologyAnalyzer(output_dir=out_dir)
+    topo = TopologyAnalyzer(output_dir=out_dir) if main else None
 
-    # Phase-2 self-supervised machinery (gated)
+    # Phase-2 self-supervised machinery (gated; rank 0's)
     phase2 = None
-    if tcfg.phase2_enabled:
+    if tcfg.phase2_enabled and main:
         phase2 = SelfSupervisedEpoch(
             state.encoder, state.decoder, tokenizer, ds, luts,
             cfg=Phase2Config(n_samples=tcfg.phase2_n_samples,
@@ -302,12 +336,15 @@ def train(
             log_fn(f'[resume] {path} -> epoch {start_epoch} '
                    f'(opt={"enc_opt" in restored} ctl={bool(ctl)})')
 
+    if group is not None:
+        replicate(modules, group)
     csv_path_out = out_dir / 'training_metrics.csv'
     # append across resumes, so that a crash-restart loop keeps one history
-    if not (start_epoch > 0 and csv_path_out.exists()):
+    if main and not (start_epoch > 0 and csv_path_out.exists()):
         with open(csv_path_out, 'w', newline='') as f:
             csv.DictWriter(f, fieldnames=CSV_FIELDS).writeheader()
 
+    nan_debug = enable_nan_debugging(*modules) if tcfg.debug_numerics else None
     try:
         for epoch in range(start_epoch, tcfg.num_epochs):
             t0 = time.time()
@@ -369,18 +406,23 @@ def train(
                 sums: Dict[str, torch.Tensor] = {}
                 n_batches = n_samples = 0
                 for batch_idx in sampler.epoch(epoch):
+                    n_samples += len(batch_idx)
+                    if group is not None:
+                        # every rank draws the same global batch; keep our shard
+                        batch_idx = shard_batch_indices(batch_idx, rank, n_ranks)
                     batch = _to_device(ds.batch(batch_idx), device)
                     state, metrics = step_fn(state, batch, step_seed, dyn)
                     n_batches += 1
-                    n_samples += len(batch_idx)
                     for k, v in metrics.items():
                         sums[k] = sums[k] + v if k in sums else v
             last_metrics = _read_sums(sums, n_batches)
             epoch_time = time.time() - t0
 
             # cadence: true-AR eval on a rotating random subsample, with the
-            # error records on their own cadence
-            if (epoch + 1) % tcfg.eval_interval == 0 or epoch == tcfg.num_epochs - 1:
+            # error records on their own cadence (rank 0's)
+            eval_epoch = (epoch + 1) % tcfg.eval_interval == 0 or epoch == tcfg.num_epochs - 1
+            params_changed = False
+            if eval_epoch and main:
                 n_eval = min(len(ds), batch_size * tcfg.eval_max_batches)
                 if tcfg.eval_random_subset and n_eval < len(ds):
                     eval_idx = np.random.default_rng(tcfg.seed * 100003 + epoch).choice(
@@ -406,6 +448,7 @@ def train(
                 bins = eval_out['tc_r2_per_bin']
                 high = [v for k, v in bins.items() if k in ('120-200K', '200-1000K')]
                 if high and tc_tracker.update(state.encoder, float(np.mean(high))):
+                    params_changed = True
                     log_fn(f'[tc-bin] epoch {epoch}: high-Tc R2 regressed; '
                            'restored the Tc head snapshot')
                 # mastery and curriculum consume the per-row AR exact; both
@@ -431,6 +474,7 @@ def train(
                         phase2_seed(tcfg.seed, epoch))
                     p2 = phase2.run(cache.z, gen, phase2_weight=p2_w,
                                     current_exact=tf_exact)
+                    params_changed = True
                     log_fn(f"[phase2] {p2['metrics']}")
                     # one record a sub-epoch (read by scripts/phase2_dashboard.py)
                     with open(out_dir / 'phase2_log.jsonl', 'a') as f:
@@ -445,12 +489,25 @@ def train(
                                         is_sc=cache.is_sc, family=cache.family)
                     topo.analyze(cache.z, is_sc=cache.is_sc,
                                  tc_kelvin=cache.tc_kelvin, epoch=epoch)
+            if eval_epoch and group is not None:
+                # what rank 0's eval decided, for every rank
+                decided = broadcast_object(
+                    {'ar': last_ar_exact, 'weights': sampler.weights,
+                     'pos': pos_weighter.state_dict() if pos_weighter else None,
+                     'params': params_changed} if main else None, group)
+                last_ar_exact = decided['ar']
+                sampler.weights = decided['weights']
+                if pos_weighter is not None:
+                    pos_weighter.load_state_dict(decided['pos'])
+                if decided['params']:
+                    replicate(modules, group)
 
             # drop detection / rollback to the on-disk 'best' checkpoint
             exact = last_metrics.get('exact_match', 0.0)
             if drop_ctl.check(epoch, exact):
                 best_dir = out_dir / 'checkpoints' / 'best'
                 if (best_dir / PAYLOAD).exists():
+                    # every rank reads it (rank 0 wrote it an epoch or more ago)
                     restored_best, _ = load_checkpoint(best_dir)
                     state.encoder.load_state_dict(restored_best['enc_params'])
                     state.decoder.load_state_dict(restored_best['dec_params'])
@@ -477,8 +534,9 @@ def train(
                 'samples_per_s': round(n_samples / max(epoch_time, 1e-6), 1),
             }
             history.append(row)
-            with open(csv_path_out, 'a', newline='') as f:
-                csv.DictWriter(f, fieldnames=CSV_FIELDS).writerow(row)
+            if main:
+                with open(csv_path_out, 'a', newline='') as f:
+                    csv.DictWriter(f, fieldnames=CSV_FIELDS).writerow(row)
             log_fn(f"epoch {epoch}: loss={row['total']:.4f} "
                    f"exact={exact:.3f} tok_acc={row['token_accuracy']:.3f} "
                    f"ar={last_ar_exact:.3f} {row['samples_per_s']}/s tf={tf_ratio}")
@@ -494,6 +552,12 @@ def train(
             if save_best:
                 last_best_saved = exact
                 last_best_save_epoch = epoch
+            if group is not None:
+                # a signal on any rank stops every rank, after one save
+                flag = torch.tensor([float(interrupt['flag'])], device=device)
+                interrupt['flag'] = all_reduce_sum_(flag, group).item() > 0
+            if not main:
+                periodic = save_best = False
             if periodic:
                 save_checkpoint(ckpt_root, state, mcfg, tcfg, epoch=epoch, metrics=row,
                                 controllers=_ctl_state(), extra_arrays=_extra_arrays())
@@ -501,13 +565,18 @@ def train(
                 save_checkpoint(ckpt_root, state, mcfg, tcfg, epoch=epoch, metrics=row,
                                 tag='best', controllers=_ctl_state(),
                                 extra_arrays=_extra_arrays())
-            if interrupt['flag']:
+            if interrupt['flag'] and main:
                 save_checkpoint(ckpt_root, state, mcfg, tcfg, epoch=epoch, metrics=row,
                                 tag='interrupt', controllers=_ctl_state(),
                                 extra_arrays=_extra_arrays())
                 log_fn(f'[interrupt] saved checkpoint at epoch {epoch}; stopping')
+            if group is not None:
+                torch.distributed.barrier(group)    # rank 0's files are written
+            if interrupt['flag']:
                 break
     finally:
+        if nan_debug is not None:
+            nan_debug.remove()
         for sig, h in old_handlers.items():
             signal.signal(sig, h)
 

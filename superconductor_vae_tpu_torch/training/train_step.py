@@ -45,6 +45,17 @@ With ``soft_token_enabled`` the decoder's forward is the two-pass
 soft-token forward (training/soft_token.py) at ``dyn['soft_ratio']``,
 whose second pass replays the first's dropout masks, as JAX's two passes
 share one ``rngs``.
+
+Data parallelism (``group``, a ``torch.distributed`` process group): each
+rank runs the step on its contiguous shard of the global batch inside a
+``parallel.global_batch`` context, so every loss term and metric is its
+share of the global batch's value (parallel/global_batch.py); the
+gradients are summed over the ranks before the clip, so every rank clips
+the same global norm and takes the same AdamW updates, and the metrics
+are summed into the global batch's.  The round trip runs on the global
+batch's first rows, which under contiguous shards are rank 0's.  Dropout
+masks are drawn per rank (rank 0's from the one-process seed), so parity
+with one process holds at dropout 0.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..data.sampler import shard_batch_indices
 from ..models import FormulaDecoder, MaterialsEncoder, SetFormulaDecoder, init_params
 from ..models.config import ModelConfig
 from ..ops.hungarian import hungarian_matching_loss
@@ -64,6 +76,8 @@ from ..ops.physics_z_loss import init_magpie_proj, physics_z_loss
 from ..ops.rl import rloo_loss, scst_loss
 from ..ops.round_trip import round_trip_loss
 from ..ops.theory import theory_loss
+from ..parallel.dist import all_reduce_grads_, all_reduce_metrics
+from ..parallel.global_batch import GlobalBatch, active, global_batch, global_rows
 from ..tokenizer import FractionAwareTokenizer
 from ..utils.device import resolve_device
 from ..utils.rng import stream_seed
@@ -302,9 +316,10 @@ def default_dyn(tcfg: TrainConfig) -> Dict[str, float]:
     }
 
 
-def dropout_seed(seed: int, step: int) -> int:
-    """The torch seed of the dropout masks of step ``step``."""
-    return stream_seed((seed, step))
+def dropout_seed(seed: int, step: int, rank: int = 0) -> int:
+    """The torch seed of the dropout masks of step ``step`` on data-parallel
+    rank ``rank`` (rank 0's is the one-process seed)."""
+    return stream_seed((seed, step)) if rank == 0 else stream_seed((seed, step, rank))
 
 
 def rollout_seed(seed: int, step: int) -> int:
@@ -359,12 +374,21 @@ def train_loss(state: TrainState, tcfg: TrainConfig, luts: Mapping[str, torch.Te
     if generator is not None:
         metrics['reward_var'] = rl_extras['reward_var']
     if tcfg.use_round_trip and tcfg.a5_weight > 0:
-        # A5 round-trip cycle consistency on the first tenth of the batch
-        subset = max(int(batch['tokens'].shape[0] * tcfg.round_trip_subset_fraction), 1)
-        rt = round_trip_loss(enc, dec, enc_out['z'], stoich, heads_vec,
-                             enc_out['magpie_pred'], enc_out['tc_pred'], luts, subset,
-                             z_weight=tcfg.a5_z_weight, tc_weight=tcfg.a5_tc_weight,
-                             max_len=dec.cfg.max_len)
+        # A5 round-trip cycle consistency on the first tenth of the
+        # (global) batch: under data parallelism, this rank's rows of it
+        b = batch['tokens'].shape[0]
+        subset = max(int(global_rows(b) * tcfg.round_trip_subset_fraction), 1)
+        gb = active()
+        mine = subset if gb is None else min(max(subset - gb.offset, 0), b)
+        if mine > 0:
+            rt = round_trip_loss(enc, dec, enc_out['z'], stoich, heads_vec,
+                                 enc_out['magpie_pred'], enc_out['tc_pred'], luts, mine,
+                                 z_weight=tcfg.a5_z_weight, tc_weight=tcfg.a5_tc_weight,
+                                 max_len=dec.cfg.max_len,
+                                 global_subset=None if gb is None else subset)
+        else:
+            zero = torch.zeros((), device=total.device)
+            rt = {'round_trip_loss': zero, 'z_mse': zero, 'tc_mse': zero}
         total = total + (tcfg.loss.constraint_zoo_weight * tcfg.a5_weight
                          * rt['round_trip_loss'])
         metrics['a5_z_mse'] = rt['z_mse']
@@ -400,7 +424,7 @@ def train_loss(state: TrainState, tcfg: TrainConfig, luts: Mapping[str, torch.Te
 
 
 def make_train_step(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
-                    rl_enabled: bool = False):
+                    rl_enabled: bool = False, group=None):
     """Returns ``step(state, batch, seed, dyn) -> (state, metrics)``.
 
     ``batch`` holds element_indices / element_fractions / element_mask
@@ -416,7 +440,12 @@ def make_train_step(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
     at ``dyn['rl_w']``, and its mean reward and ``reward_var`` to the
     metrics.  ``state.step`` counts steps (mini-steps under
     accumulation).  A compute dtype other than float32 or bfloat16 raises
-    ``ValueError``."""
+    ``ValueError``.
+
+    With a process ``group`` (``torch.distributed.group.WORLD`` for the
+    default one) ``batch`` is this rank's shard of the global batch and the
+    step is data-parallel (see the module's docstring); the state's
+    parameters must be equal on every rank (``parallel.replicate``)."""
     compute_dtype(tcfg)
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor], seed: int,
@@ -427,16 +456,22 @@ def make_train_step(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
         groups = state.groups()
         device = groups[0][0][0].device
         cuda = [device] if device.type == 'cuda' else []
+        gb = None
+        if group is not None:
+            gb = GlobalBatch(rank=torch.distributed.get_rank(group),
+                             world=torch.distributed.get_world_size(group),
+                             local_rows=batch['tokens'].shape[0], group=group)
         generator = None
         if rl_enabled:
             generator = torch.Generator(device=device).manual_seed(
                 rollout_seed(seed, state.step))
         with torch.random.fork_rng(devices=cuda):
-            torch.manual_seed(dropout_seed(seed, state.step))
+            torch.manual_seed(dropout_seed(seed, state.step, gb.rank if gb else 0))
             for _, opt in groups:
                 opt.zero_grad(set_to_none=True)
-            total, metrics = train_loss(state, tcfg, luts, batch, dyn, generator)
-            total.backward()
+            with global_batch(gb):
+                total, metrics = train_loss(state, tcfg, luts, batch, dyn, generator)
+                total.backward()
         norms = []
         for params, opt in groups:
             # a parameter the loss does not reach has a zero gradient, and
@@ -444,6 +479,8 @@ def make_train_step(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if gb is not None:
+                all_reduce_grads_(params, group)
             grads = [p.grad for p in params]
             if isinstance(opt, MultiSteps):
                 # the metric is this mini-step's norm; the clip sees the mean
@@ -456,6 +493,8 @@ def make_train_step(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
             opt.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if gb is not None:
+            metrics = all_reduce_metrics(metrics, group)
         metrics['grad_norm'] = torch.sqrt(norms[0] ** 2 + norms[1] ** 2)
         return state, metrics
 
@@ -463,7 +502,7 @@ def make_train_step(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
 
 
 def make_epoch_runner(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
-                      rl_enabled: bool = False):
+                      rl_enabled: bool = False, group=None):
     """Returns ``run(state, data, idx_mat, seed, dyn) -> (state, sums)``:
     the train step over the rows ``idx_mat`` [n_batches, B] of the
     device-resident dataset ``data`` (``ds.batch`` of every row as
@@ -472,13 +511,22 @@ def make_epoch_runner(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
     host sends the indices once, and nothing in the epoch waits for the
     device (no ``.item()``, no copy to the host).  ``sums`` holds each
     metric summed over the steps, as device tensors; the caller reads
-    them once."""
-    step = make_train_step(tcfg, luts, rl_enabled=rl_enabled)
+    them once.  With a process ``group`` ``idx_mat`` is the global batches'
+    rows, of which each rank takes its contiguous block of columns, and the
+    sums are the global batches'."""
+    step = make_train_step(tcfg, luts, rl_enabled=rl_enabled, group=group)
 
     def run(state: TrainState, data: Mapping[str, torch.Tensor], idx_mat, seed: int,
             dyn: Mapping[str, float]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         device = next(iter(data.values())).device
-        idx = torch.as_tensor(np.asarray(idx_mat), dtype=torch.long)
+        idx_mat = np.asarray(idx_mat)
+        if group is not None:
+            rank, n = torch.distributed.get_rank(group), torch.distributed.get_world_size(group)
+            if idx_mat.shape[1] % n:
+                raise ValueError(f'batch of {idx_mat.shape[1]} rows does not divide '
+                                 f'over {n} ranks')
+            idx_mat = shard_batch_indices(idx_mat.T, rank, n).T
+        idx = torch.as_tensor(idx_mat, dtype=torch.long)
         if device.type == 'cuda':     # from pinned memory the copy does not wait
             idx = idx.pin_memory()
         idx_dev = idx.to(device, non_blocking=True)

@@ -252,11 +252,15 @@ def test_ckpt_skew_transform_on_committed_metas():
 
 
 def test_unported_options_raise():
-    """The magpie bridge (A.16) is refused; the speculative decode (A.13)
-    runs: a bare bigram table, at tiny width, gives streams that agree with
-    the plain greedy scan up to each row's EOS."""
-    with pytest.raises(NotImplementedError, match='A.16'):
-        pipeline.load_dataset(CSV, magpie_bridge=ROOT / 'data/magpie_bridge.npz')
+    """Options once refused run: the magpie bridge (A.16; held to JAX's in
+    tests/test_torch_port_utils.py) widens the Magpie block to the
+    bridge's layout; the speculative decode (A.13): a bare bigram table, at
+    tiny width, gives streams that agree with the plain greedy scan up to
+    each row's EOS."""
+    bridged = pipeline.load_dataset(CSV, magpie_bridge=ROOT / 'data/magpie_bridge.npz',
+                                    limit=64)
+    w = np.load(ROOT / 'data/magpie_bridge.npz')['w']
+    assert bridged.magpie.shape == (len(bridged), w.shape[1]) and len(bridged) > 0
     cfg = tiny_test_config()
     enc, dec = port_models(cfg, param_trees(cfg))
     ds = synthetic_dataset(n=4, max_len=cfg.max_len, magpie_dim=16)

@@ -447,10 +447,13 @@ def test_drop_rollback_restores_the_best_checkpoint(tmp_path, monkeypatch, one_e
         assert torch.equal(saved['enc_params'][name], v), name
 
 
-@pytest.mark.parametrize('option,slice_name', [(dict(debug_numerics=True), 'A.16')])
-def test_unported_options_raise(tmp_path, option, slice_name):
+@pytest.mark.parametrize('option,message', [(dict(compute_dtype='float16'), 'compute_dtype')])
+def test_unported_options_raise(tmp_path, option, message):
+    """Every option of the JAX loop is ported since debug_numerics
+    (A.16, tests/test_torch_port_utils.py); a compute dtype that neither
+    package has is refused."""
     tc = TrainConfig(**dict(_LOOP, **option))
-    with pytest.raises(NotImplementedError, match=slice_name):
+    with pytest.raises(ValueError, match=message):
         train(model_config=tiny_test_config(), train_config=tc, output_dir=tmp_path,
               limit=16, device='cpu')
 

@@ -279,8 +279,13 @@ def test_migrate_cli(tiny_ckpt, inputs, cmd, flags, tag):
 
 
 def test_migrate_cli_refuses_from_torch(tmp_path):
-    with pytest.raises(SystemExit, match='A.16'):
-        migrate_checkpoint.main(['from-torch', 'x.pt', '--out', str(tmp_path)])
+    """``from-torch`` runs since the converter is ported
+    (tests/test_torch_port_torch_convert.py); it refuses a file that is
+    not there, and writes nothing."""
+    with pytest.raises(FileNotFoundError):
+        migrate_checkpoint.main(['from-torch', str(tmp_path / 'x.pt'), '--out',
+                                 str(tmp_path / 'out')])
+    assert not (tmp_path / 'out').exists()
 
 
 def test_migrated_checkpoint_in_the_eval_cli_and_train(tiny_ckpt, tmp_path):
