@@ -23,6 +23,11 @@
    bench.py's probe (B=512, T=38, position 19, bfloat16); and the kernel
    alone at every position 0..28 at B=256 and at B=1024, whose means are
    what the eval path and the SCST rollout (RL batch 512) pay a launch.
+   Then K1 at H=4 (a rank's heads under 2-way tensor parallelism), float32,
+   B=25 (the round trip) and B=256 (the eval batch): against its plain
+   version at every position, and timed at every position 0..28 beside
+   the plain version, SDPA and the bytes bound (means in the kernels line,
+   ``h4_b25`` and ``h4_b256``).
 4. Data phase: data/processed/jarvis_merged.csv.gz through the port's
    data/pipeline.py load_dataset with run4's normalisation
    (ckpt_skew_transform of its meta.json: rank-gauss), timed on the host,
@@ -128,6 +133,21 @@
    run4 widths through checkpoint/torch_convert.py: TF logits card vs CPU.
    (d) The native tokenizer and parser (native/, g++) on the corpus's
    formulas against the Python path, bit-equal, with each one's seconds.
+8e. TP phase: tensor parallelism (parallel/mesh.py, parallel/tensor.py)
+   ('tp' lines), through scripts/dryrun_multichip.py's run_tp in 2 gloo
+   ranks on this card, a 1 x 2 grid: the decoder Megatron-sharded over the
+   two ranks (each holds 4 of the 8 heads, and its caches and K1 see 4),
+   at run4 width, dropout 0 (the set decoder's too),
+   TrainConfig(batch_size=256)'s defaults: N_TP_STEPS steps, each against
+   the one-process step that rank 0 runs from the gathered state (metrics
+   within DIST_TOL, the gradient norm within METRIC_TOL, AdamW moments
+   within DIST_MOMENT_REL of each group's largest); the replicated
+   parameters and their gradients equal on both ranks bit for bit; K1
+   launched 348 times a step on each rank (both hold the round trip's 25
+   rows); then eval_batch of the corpus's first 256 rows with run4's
+   gates and the e2e phase's fixed heads through the TP decoder and the
+   whole one: the streams equal up to EOS but at near-ties (TIE), K1 = 12
+   x 29 on each rank; TP and one-process samples/s.
 9. RL phase: the RL train step (training/train_step.py, rl_enabled) at
    run4's widths with weights from a seed, float32, dropout 0.1, K1 in
    the rollouts, bench.py's RL TrainConfig (rl.max_len = max_len, rl_w 1)
@@ -461,6 +481,10 @@ K1_TIMED = [('float32', BATCH, 30, 29), ('float32', BATCH, 30, 14),
             ('bfloat16', 512, 38, 19)]                # bench.py --pallas-decode's probe
 L2_COLD_BYTES = 150e6             # each timed rotation spans three L2 caches
 K1_PER_POSITION_B = (BATCH, 1024)   # the eval batch; the SCST rollout of 512 rows
+# tensor parallelism on 2 model ranks: a rank's 4 of the 8 heads, at the
+# round trip's 25 rows and the eval batch's 256
+K1_TP_HEADS = 4
+K1_TP_B = (25, BATCH)
 
 
 def k1_bytes_ops(b, h, dh, position, itemsize):
@@ -614,8 +638,19 @@ def kernel_phase(torch, dev):
               f'mean {bound_mean * 1e3:.2f} us, kernel / bound {mean / bound_mean:.2f}); by '
               'position ' + ' '.join(f'{x * 1e3:.1f}' for x in per_pos))
         del sets
+
+    # tensor parallelism's head-sharded caches: H=4, float32
+    h4 = {}
+    for b in K1_TP_B:
+        err = max(held(b, K1_TP_HEADS, t, dh, torch.float32, p) for p in range(t))
+        print(f'K1 check float32  B={b} H={K1_TP_HEADS} T={t} Dh={dh} (tensor parallelism, '
+              f'pos 0..{t - 1}): max_abs_err={err:.3e} (tol {K1_TOL["float32"]}) '
+              'caches_equal=True')
+        max_err['float32'] = max(max_err['float32'], err)
+        h4[f'h4_b{b}'] = k1_position_means(torch, gen, b, K1_TP_HEADS, t, dh, torch.float32,
+                                           f'K1 H={K1_TP_HEADS}')
     torch.cuda.empty_cache()
-    return rows[('float32', *K1_TIMED[0][1:])], max_err['float32']
+    return dict(rows[('float32', *K1_TIMED[0][1:])], **h4), max_err['float32']
 
 
 # -- K2 phase -----------------------------------------------------------------
@@ -4030,6 +4065,105 @@ def dist_phase(torch, dev, batches):
     return launches
 
 
+# -- TP phase -------------------------------------------------------------------
+
+N_TP_STEPS = 2
+TP_DECODE_ROWS = BATCH
+
+
+def tp_phase(torch, dev, batches, world=2, backend='gloo'):
+    """Tensor parallelism (parallel/mesh.py, parallel/tensor.py, the train
+    step over a grid): scripts/dryrun_multichip.py's ``run_tp`` in
+    ``world`` ranks, 2 on the model axis (2 gloo ranks on this card, a 1 x
+    2 grid, by default; 4 NCCL ranks on four cards, a 2 x 2 grid), at run4
+    width with dropout 0 (the
+    set decoder's too) and TrainConfig(batch_size=256)'s defaults, for
+    N_TP_STEPS steps against the one-process step that rank 0 runs from
+    the gathered state (metrics within DIST_TOL, the gradient norm within
+    METRIC_TOL, AdamW moments within DIST_MOMENT_REL of each group's
+    largest, printed by group); the replicated parameters and their
+    gradients equal across each model group; K1 348 launches a step on
+    each rank of data index 0 (the round trip's rows), at 4 heads, and
+    none on the others; then the first TP_DECODE_ROWS corpus rows decoded
+    greedily with run4's gates through the TP decoder and the whole one
+    (the e2e phase's fixed heads): streams equal but at near-ties, K1 = 12
+    x 29 on each rank.  Returns K1's launches on every rank."""
+    from superconductor_vae_tpu_torch.models import config_from_meta
+    from superconductor_vae_tpu_torch.scripts import dryrun_multichip
+    from superconductor_vae_tpu_torch.tokenizer import EOS_ID
+    from superconductor_vae_tpu_torch.training import (
+        TrainConfig, create_train_state, default_dyn, eval_generation_config,
+        eval_train_config)
+
+    meta = json.loads(META.read_text())
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    cfg0 = config_from_meta(meta['model_config'], pallas_decode=True, dropout=0.0)
+    tcfg = TrainConfig(batch_size=BATCH)
+    state = no_set_dropout(create_train_state(cfg0, tcfg, seed=SEED, device=dev))
+    fix_rollout_heads(torch, state.decoder)
+    dyn = dict(default_dyn(tcfg), physz_w=float(meta['controllers']['physz']['weight']))
+    gcfg = eval_generation_config(eval_train_config(cfg0.max_len, meta['eval_gating']),
+                                  cfg0.max_len)
+    decode_batch = {k: v[:TP_DECODE_ROWS].cpu() for k, v in batches[0].items()}
+    job = dict(cases=[dryrun_multichip.dp_case(state, tcfg, dyn)], max_len=cfg0.max_len,
+               seed=SEED, snapshots=False,
+               batches=[{k: v.cpu() for k, v in b.items()} for b in batches[:N_TP_STEPS]],
+               decode=dict(case=0, batch=decode_batch, gcfg=gcfg, type_masks=True))
+    del state
+    torch.cuda.empty_cache()
+    per_step = cfg0.num_layers * (cfg0.max_len - 1)
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip.run_tp(job, world, 'cuda', n_model=2, backend=backend,
+                                    timeout=600)
+    wall = time.perf_counter() - t0
+    grid = f'{world // 2} x 2 grid of {backend} ranks on {torch.cuda.device_count()} card(s)'
+    worst = dryrun_multichip.check_tp(ranks, DIST_TOL, METRIC_TOL, DIST_MOMENT_REL,
+                                      f'chip_smoke: tp ({grid})')
+    for r, res in enumerate(ranks):
+        want = per_step if res['grid'][0] == 0 else 0
+        got = [s['k1'] for s in res['cases'][0]['step']['steps']]
+        check(got == [want] * len(got),
+              f'tp: rank {r} launched K1 {got} times a step, not {want}')
+    steps0 = ranks[0]['cases'][0]['step']['steps']
+    n_sharded = ranks[0]['cases'][0]['step']['n_sharded']
+    print(f'tp: run4 widths on a {grid}, {n_sharded} decoder '
+          f'parameters sharded, {cfg0.nhead // 2} heads a rank; {N_TP_STEPS} default steps of '
+          f'{BATCH} rows ({steps0[0]["rows"]} a rank) against the one-process step from the '
+          f'gathered state: metrics within '
+          f'{DIST_TOL["rtol"]:g} (grad_norm {METRIC_TOL["rtol"]:g}), total within '
+          f'{dryrun_multichip.TP_TOTAL_TOL:g}, moments within {worst:.2e} of each group\'s '
+          f'largest (tol {DIST_MOMENT_REL:g}); replicated parameters and gradients equal '
+          f'across each model group; K1 {per_step} a step on each rank of data index 0 at '
+          f'H={cfg0.nhead // 2}, 0 elsewhere; peak '
+          f'{max(r["peak_gib"] for r in ranks):.2f} GiB a rank; the phase part {wall:.1f} s')
+    print(f'tp: train samples/s by step (the first includes warm-up): TP by rank '
+          + '; '.join(f'{r}: ' + ', '.join(f'{BATCH / s["seconds"]:.1f}' for s in res['cases'][0][
+              'step']['steps']) for r, res in enumerate(ranks))
+          + '; one process ' + ', '.join(f'{BATCH / s["one_seconds"]:.1f}' for s in steps0)
+          + f' [{card}]')
+    print('tp: moments against the one-process step, of each group\'s largest (by step): '
+          + '; '.join(f'{k} ' + ', '.join(f'{s["moments_worst"][k]:.1e}' for s in steps0)
+                      for k in steps0[0]['moments_worst']))
+
+    tp, one = ranks[0]['decode']['tp'], ranks[0]['decode']['one']
+    for r, res in enumerate(ranks):
+        check(res['decode']['tp']['k1'] == per_step,
+              f'tp: the decode launched K1 {res["decode"]["tp"]["k1"]} times on rank {r}, '
+              f'not {per_step}')
+    ties = compare_streams(tp, one, EOS_ID, 'tp decode')
+    tf_same = float((tp['tf_pred'] == one['tf_pred']).float().mean())
+    print(f'tp: greedy eval_batch of the first {TP_DECODE_ROWS} corpus rows through the TP '
+          f'decoder and the whole one: streams equal up to EOS but {ties} near-tie rows '
+          f'(top-two gap < {TIE:g}); TF argmax equal at {tf_same:.4f} of positions; K1 '
+          f'{per_step} on each rank; formulas/s TP '
+          f'{TP_DECODE_ROWS / tp["seconds"]:.1f}, one process '
+          f'{TP_DECODE_ROWS / one["seconds"]:.1f} [{card}]')
+    return sum(s['k1'] for res in ranks for s in res['cases'][0]['step']['steps']) \
+        + sum(res['decode']['tp']['k1'] for res in ranks)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4073,6 +4207,7 @@ def main() -> int:
     defaults_launches, _, _ = timed('defaults', defaults_phase(torch, dev, batches))
     soft_launches = timed('soft', soft_token_phase(torch, dev, batches))
     dist_launches = timed('dist', dist_phase(torch, dev, batches))
+    tp_launches = timed('tp', tp_phase(torch, dev, batches))
     rl_results = timed('rl', rl_phase(torch, dev, batches))
     k1_bf16, k1_bf16_err = timed('k1 bf16', k1_bf16_phase(torch, dev))
     bench_launches, _ = timed('bench', bench_phase(torch, dev))
@@ -4086,6 +4221,7 @@ def main() -> int:
                 'defaults (round trip)': defaults_launches,
                 'soft-token (round trip)': soft_launches,
                 **{f'dist {k} (round trip, SCST rollout)': v for k, v in dist_launches.items()},
+                'tp gloo 1 x 2 (round trip and decode, H=4, both ranks)': tp_launches,
                 'rl scst': rl_results['scst'][1], 'rl rloo': rl_results['rloo'][1],
                 'loop': loop_launches, 'phase2': p2_launches, 'holdout': holdout_launches,
                 **surgery_launches}

@@ -13,6 +13,13 @@ The decoder runs in its compute dtype, with its weights cast once for the
 whole rollout (``cast_weights_once``); the gated logits are float32, and
 the stop, type and site-dup heads are read in the compute dtype, as in the
 JAX loop.
+
+A tensor-parallel decoder (``decoder.tp``) has the whole logits on every
+rank of its model group, so every rank takes the same tokens (a sampling
+rollout draws from a generator seeded alike on every rank).  The rollout
+holds it to that: the early-exit flag is taken over the group (every rank
+stops at the same step) and the streams are compared across the group at
+the end, raising on every rank if they differ.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Dict, Optional
 import torch
 
 from ..models.layers import cast_weights_once
+from ..parallel.tensor import all_across, check_equal_across
 from ..tokenizer import BOS_ID, EOS_ID, ELEMENT_TOKEN_START, INTEGER_TOKEN_START
 
 
@@ -132,6 +140,7 @@ def generate_with_kv_cache(
     dev = z.device
     vocab = decoder.cfg.vocab_size
     steps = gcfg.max_len - 1
+    tp = getattr(decoder, 'tp', None)
 
     with cast_weights_once(decoder):
         if memory is None:
@@ -149,7 +158,8 @@ def generate_with_kv_cache(
         margins = torch.zeros(b, steps, device=dev)
 
         for pos in range(steps):
-            if gcfg.early_exit and bool(finished.all()):
+            if gcfg.early_exit and (bool(finished.all()) if tp is None
+                                    else all_across(finished.all(), tp)):
                 break
             heads, kc, vc = decoder.decode_step(tok, pos, kc, vc, mem_kvs)
             logits = _apply_gates(heads['logits'].float(), heads, pos, finished,
@@ -191,6 +201,8 @@ def generate_with_kv_cache(
             entropies[:, pos] = entropy
             tok = next_tok
 
+    if tp is not None:
+        check_equal_across(tokens, tp, 'the rollout\'s tokens')
     out = {'tokens': tokens, 'log_probs': log_probs, 'entropy': entropies,
            'mask': sequence_mask(tokens)}
     if gcfg.greedy:

@@ -14,6 +14,18 @@ in the compute dtype.  Cross-attention K/V over the static memory are
 projected once per generation (``memory_kv``).  ``dtype`` is the compute
 dtype, as flax's: the parameters are float32 whatever it is
 (models/layers.py).
+
+Built with ``tp`` (a ``parallel.mesh.Grid`` with ``n_model`` > 1), the
+decoder holds this rank's shard of a tensor-parallel layout
+(parallel/tensor.py, the rules of parallel/mesh.py ``tp_param_specs``):
+in each layer ``self_{q,k,v}``, ``cross_{q,k,v}`` and ``ff1`` are
+column-parallel, ``self_o``, ``cross_o`` and ``ff2`` row-parallel;
+``out_d1`` column- and ``out_d2`` row-parallel, so the logits are whole on
+every rank; the token embedding vocab-parallel; any of them whose sharded
+dimension does not divide by ``n_model`` stays whole, as JAX's rules
+fall back.  Attention runs on this rank's ``nhead / n_model`` heads, and
+so do the KV caches and K1.  The parameter names are the whole decoder's
+(``parallel.mesh.shard_params_tp`` fills them from one).
 """
 
 from __future__ import annotations
@@ -29,6 +41,8 @@ from torch import nn
 
 from ..ops.attention import causal_mask, mha_attention
 from ..ops.decode_attention import decode_step_attention
+from ..parallel.tensor import (ColumnParallelDense, RowParallelDense, VocabParallelEmbed,
+                               copy_to_model, shard_dropout)
 from ..utils.device import resolve_device
 from .config import ModelConfig
 from .layers import Dense, Embed, LayerNorm
@@ -68,10 +82,37 @@ def positional_table(cfg: ModelConfig) -> np.ndarray:
     return base[:, head_dup_map(cfg.pos_dim, cfg.d_model, cfg.nhead)]
 
 
+def column_dense(in_features: int, out_features: int, tp, **kw) -> Dense:
+    """A column-parallel ``Dense`` under ``tp`` where ``out_features``
+    divides by ``n_model``, else a whole one (JAX's fallback)."""
+    if tp is not None and out_features % tp.n_model == 0:
+        return ColumnParallelDense(in_features, out_features, tp, **kw)
+    return Dense(in_features, out_features, **kw)
+
+
+def row_dense(in_features: int, out_features: int, tp, **kw) -> Dense:
+    """A row-parallel ``Dense`` under ``tp`` where ``in_features`` divides
+    by ``n_model``, else a whole one."""
+    if tp is not None and in_features % tp.n_model == 0:
+        return RowParallelDense(in_features, out_features, tp, **kw)
+    return Dense(in_features, out_features, **kw)
+
+
+def _tp_of(layer):
+    """The model group of a column-parallel layer, else None."""
+    return layer.tp if isinstance(layer, ColumnParallelDense) else None
+
+
+def fan_out(x, layer):
+    """``x`` as the input of ``layer`` and of the layers that read it with
+    it: through ``copy_to_model`` when ``layer`` is column-parallel."""
+    return copy_to_model(x, _tp_of(layer))
+
+
 class DecoderLayer(nn.Module):
     """Pre-norm decoder layer: causal self-attn, cross-attn to memory, GELU FFN."""
 
-    def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32):
+    def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32, tp=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
@@ -80,16 +121,29 @@ class DecoderLayer(nn.Module):
             self.add_module(name, LayerNorm(d, **kw))
         for name in ('self_q', 'self_k', 'self_v', 'self_o',
                      'cross_q', 'cross_k', 'cross_v', 'cross_o'):
-            self.add_module(name, Dense(d, d, **kw))
-        self.ff1 = Dense(d, cfg.dim_feedforward, **kw)
-        self.ff2 = Dense(cfg.dim_feedforward, d, **kw)
+            make = row_dense if name.endswith('_o') else column_dense
+            self.add_module(name, make(d, d, tp, **kw))
+        if _tp_of(self.self_q) is not None and cfg.nhead % tp.n_model:
+            raise ValueError(f'tensor parallelism shards attention by heads: {cfg.nhead} '
+                             f'heads do not divide over {tp.n_model} model ranks')
+        self.ff1 = column_dense(d, cfg.dim_feedforward, tp, **kw)
+        self.ff2 = row_dense(cfg.dim_feedforward, d, tp, **kw)
 
     def _split(self, x):
         b, t, _ = x.shape
-        return x.reshape(b, t, self.cfg.nhead, self.cfg.head_dim)
+        return x.reshape(b, t, -1, self.cfg.head_dim)
 
     def _drop(self, x):
         return F.dropout(x, self.cfg.dropout, self.training)
+
+    def _ff(self, x, dropout: bool):
+        """The feed-forward branch on the normalised ``x``; dropout on its
+        hidden features when ``dropout`` (on this rank's shard of them
+        under tensor parallelism)."""
+        h = _gelu(self.ff1(fan_out(x, self.ff1)))
+        if dropout:
+            h = shard_dropout(h, self.cfg.dropout, True, _tp_of(self.ff1))
+        return self.ff2(h)
 
     def cross_kv(self, memory) -> Tuple[torch.Tensor, torch.Tensor]:
         """Project the static memory to K/V once per generation. [B,M,H,Dh] x2."""
@@ -99,20 +153,21 @@ class DecoderLayer(nn.Module):
         return self._split(self.self_k(x_norm)), self._split(self.self_v(x_norm))
 
     def forward(self, x, memory, self_mask, memory_kv=None):
-        b, t, d = x.shape
-        xn = self.norm1(x)
+        """The layer over ``x`` [B, T, d]; ``memory`` reaches ``cross_k`` /
+        ``cross_v`` as it is (the decoder passes it through ``fan_out``
+        once for all layers)."""
+        b, t, _ = x.shape
+        xn = fan_out(self.norm1(x), self.self_q)
         q = self._split(self.self_q(xn))
         k, v = self.self_kv(xn)
-        sa = mha_attention(q, k, v, self_mask).reshape(b, t, d)
+        sa = mha_attention(q, k, v, self_mask).reshape(b, t, -1)
         x = x + self._drop(self.self_o(sa))
-        xn = self.norm2(x)
+        xn = fan_out(self.norm2(x), self.cross_q)
         q = self._split(self.cross_q(xn))
         mk, mv = memory_kv if memory_kv is not None else self.cross_kv(memory)
-        ca = mha_attention(q, mk, mv).reshape(b, t, d)
+        ca = mha_attention(q, mk, mv).reshape(b, t, -1)
         x = x + self._drop(self.cross_o(ca))
-        xn = self.norm3(x)
-        ff = self.ff2(self._drop(_gelu(self.ff1(xn))))
-        return x + self._drop(ff)
+        return x + self._drop(self._ff(self.norm3(x), self.training))
 
     def step(self, x, k_cache, v_cache, memory_kv, position: int, valid_len: int):
         """Single-token forward with the fixed-shape KV cache.
@@ -122,27 +177,26 @@ class DecoderLayer(nn.Module):
         memory_kv: (mk, mv); valid_len: cache capacity (== max_len).
         Returns (x_out [B,1,d], k_cache, v_cache)."""
         b = x.shape[0]
-        d = self.cfg.d_model
-        xn = self.norm1(x)
+        xn = fan_out(self.norm1(x), self.self_q)
         q = self._split(self.self_q(xn))                      # [B,1,H,Dh]
         k_new, v_new = self.self_kv(xn)
         if self.cfg.pallas_decode:
             sa = decode_step_attention(
                 q[:, 0].contiguous(), k_new[:, 0].contiguous(),
                 v_new[:, 0].contiguous(), k_cache, v_cache, position)
-            sa = sa.reshape(b, 1, d)
+            sa = sa.reshape(b, 1, -1)
         else:
             k_cache[:, position] = k_new[:, 0]
             v_cache[:, position] = v_new[:, 0]
             pos_ids = torch.arange(valid_len, device=x.device)[None, None, None, :]
             sa = mha_attention(q, k_cache, v_cache,
-                               pos_ids <= position).reshape(b, 1, d)
+                               pos_ids <= position).reshape(b, 1, -1)
         x = x + self.self_o(sa)
-        xn = self.norm2(x)
+        xn = fan_out(self.norm2(x), self.cross_q)
         mk, mv = memory_kv
-        ca = mha_attention(self._split(self.cross_q(xn)), mk, mv).reshape(b, 1, d)
+        ca = mha_attention(self._split(self.cross_q(xn)), mk, mv).reshape(b, 1, -1)
         x = x + self.cross_o(ca)
-        x = x + self.ff2(_gelu(self.ff1(self.norm3(x))))
+        x = x + self._ff(self.norm3(x), False)
         return x, k_cache, v_cache
 
 
@@ -206,22 +260,27 @@ class FormulaDecoder(nn.Module):
     decode step.  Built on ``device`` (default CUDA; raises if it is
     absent), computing in ``dtype`` with float32 parameters."""
 
-    def __init__(self, cfg: ModelConfig, device='cuda', dtype=torch.float32):
+    def __init__(self, cfg: ModelConfig, device='cuda', dtype=torch.float32, tp=None):
         super().__init__()
         device = resolve_device(device)
         kw = dict(device=device, dtype=dtype)
         self.cfg, self.dtype = cfg, dtype
+        self.tp = tp if tp is not None and tp.n_model > 1 else None
+        tp = self.tp
         d = cfg.d_model
-        self.token_embedding = Embed(cfg.vocab_size, d, **kw)
+        if tp is not None and cfg.vocab_size % tp.n_model == 0:
+            self.token_embedding = VocabParallelEmbed(cfg.vocab_size, d, tp, **kw)
+        else:
+            self.token_embedding = Embed(cfg.vocab_size, d, **kw)
         # +8 slack rows, as in the JAX table (chunked decode reads past the end)
         self.register_buffer('pos_table', torch.tensor(
             positional_table(cfg), device=device), persistent=False)
         self.memory_builder = MemoryBuilder(cfg, **kw)
         for i in range(cfg.num_layers):
-            self.add_module(f'layer_{i}', DecoderLayer(cfg, **kw))
+            self.add_module(f'layer_{i}', DecoderLayer(cfg, tp=tp, **kw))
         self.out_ln = LayerNorm(d, **kw)
-        self.out_d1 = Dense(d, d, **kw)
-        self.out_d2 = Dense(d, cfg.vocab_size, **kw)
+        self.out_d1 = column_dense(d, d, tp, **kw)
+        self.out_d2 = row_dense(d, cfg.vocab_size, tp, **kw)
         self.stop_d1 = Dense(d, d // 4, **kw)
         self.stop_d2 = Dense(d // 4, 1, **kw)
         self.dup_d1 = Dense(d, d // 4, **kw)
@@ -238,11 +297,19 @@ class FormulaDecoder(nn.Module):
     def _drop(self, x, deterministic: bool = False):
         return F.dropout(x, self.cfg.dropout, self.training and not deterministic)
 
+    @property
+    def local_heads(self) -> int:
+        """The attention heads this decoder holds: ``nhead``, or ``nhead /
+        n_model`` under tensor parallelism."""
+        return self.layer_0.self_q.out_features // self.cfg.head_dim
+
     # -- heads ---------------------------------------------------------------
     def output_heads(self, h, deterministic: bool = False) -> Dict[str, torch.Tensor]:
         """Hidden states -> (vocab logits, stop, type, site-dup) heads.
         Dropout runs in train mode unless ``deterministic``."""
-        y = self._drop(_gelu(self.out_d1(self.out_ln(h))), deterministic)
+        y = _gelu(self.out_d1(fan_out(self.out_ln(h), self.out_d1)))
+        y = shard_dropout(y, self.cfg.dropout, self.training and not deterministic,
+                          _tp_of(self.out_d1))
         logits = self.out_d2(y)
         stop = self.stop_d2(_gelu(self.stop_d1(h)))[..., 0]
         dup = self.dup_d2(_gelu(self.dup_d1(h)))[..., 0]
@@ -276,8 +343,9 @@ class FormulaDecoder(nn.Module):
         t = input_embeds.shape[1]
         x = self._drop(input_embeds + self.pos_table[None, :t].to(self.dtype))
         mask = causal_mask(t, device=x.device)
+        memory_in = fan_out(memory, self.layer_0.cross_k)
         for layer in self.layers:
-            x = layer(x, memory, mask)
+            x = layer(x, memory_in, mask)
         heads = self.output_heads(x)
         heads['generated'] = heads['logits'].argmax(dim=-1)
         heads['memory'] = memory
@@ -291,6 +359,8 @@ class FormulaDecoder(nn.Module):
     def embed_soft(self, probs) -> torch.Tensor:
         """Probability rows -> expected embedding, ``probs @ E`` in the
         probabilities' dtype."""
+        if isinstance(self.token_embedding, VocabParallelEmbed):
+            return self.token_embedding.soft(probs)
         return probs @ self.token_embedding.weight.to(probs.dtype)
 
     # -- single-token cached step ---------------------------------------------
@@ -318,20 +388,19 @@ class FormulaDecoder(nn.Module):
         queries attend the whole cache under ``mask`` (plain attention, no
         dropout).  Returns the output heads over the K positions."""
         b, k = x.shape[:2]
-        d = self.cfg.d_model
         for i, layer in enumerate(self.layers):
-            xn = layer.norm1(x)
+            xn = fan_out(layer.norm1(x), layer.self_q)
             q = layer._split(layer.self_q(xn))
             kk, vv = layer.self_kv(xn)
             write(k_caches[i], kk)
             write(v_caches[i], vv)
-            sa = mha_attention(q, k_caches[i], v_caches[i], mask).reshape(b, k, d)
+            sa = mha_attention(q, k_caches[i], v_caches[i], mask).reshape(b, k, -1)
             x = x + layer.self_o(sa)
-            xn = layer.norm2(x)
+            xn = fan_out(layer.norm2(x), layer.cross_q)
             mk, mv = memory_kvs[i]
-            ca = mha_attention(layer._split(layer.cross_q(xn)), mk, mv).reshape(b, k, d)
+            ca = mha_attention(layer._split(layer.cross_q(xn)), mk, mv).reshape(b, k, -1)
             x = x + layer.cross_o(ca)
-            x = x + layer.ff2(_gelu(layer.ff1(layer.norm3(x))))
+            x = x + layer._ff(layer.norm3(x), False)
         return self.output_heads(x, deterministic=True)
 
     def _check_chunk_layout(self):
@@ -396,15 +465,17 @@ class FormulaDecoder(nn.Module):
         """Zeroed K and V caches in the compute dtype: [L, B, H, T, Dh] under
         ``cfg.pallas_decode`` (the kernel's layout), else [L, B, T + extra,
         H, Dh]: ``extra`` slack rows take a chunk's writes at the tail
-        (speculative decoding), which the kernel's layout refuses."""
+        (speculative decoding), which the kernel's layout refuses.  H is
+        ``local_heads``."""
         cfg = self.cfg
+        h = self.local_heads
         if cfg.pallas_decode:
             if extra != 0:
                 raise ValueError('init_cache: slack rows (the speculative chunk forward) '
                                  'need the [L, B, T, H, Dh] layout, not pallas_decode')
-            shape = (cfg.num_layers, batch_size, cfg.nhead, cfg.max_len, cfg.head_dim)
+            shape = (cfg.num_layers, batch_size, h, cfg.max_len, cfg.head_dim)
         else:
-            shape = (cfg.num_layers, batch_size, cfg.max_len + extra, cfg.nhead, cfg.head_dim)
+            shape = (cfg.num_layers, batch_size, cfg.max_len + extra, h, cfg.head_dim)
         kw = dict(device=self.pos_table.device, dtype=self.dtype)
         return torch.zeros(shape, **kw), torch.zeros(shape, **kw)
 
@@ -417,6 +488,6 @@ def plain_layout(decoder: FormulaDecoder) -> FormulaDecoder:
     if not decoder.cfg.pallas_decode:
         return decoder
     twin = FormulaDecoder(dataclasses.replace(decoder.cfg, pallas_decode=False),
-                          device=decoder.pos_table.device, dtype=decoder.dtype)
+                          device=decoder.pos_table.device, dtype=decoder.dtype, tp=decoder.tp)
     twin.load_state_dict(decoder.state_dict(keep_vars=True), assign=True)
     return twin.train(decoder.training)

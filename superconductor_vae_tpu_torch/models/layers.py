@@ -51,16 +51,22 @@ class Dense(nn.Linear):
         self.dtype = dtype
         self.frozen = None      # (weight, bias) cast once, see cast_weights_once
 
+    def weights(self):
+        """(weight, bias) in the compute dtype: the parameters in float32,
+        else their casts, or the copies cast once (``cast_weights_once``)."""
+        if self.dtype == PARAM_DTYPE:
+            return self.weight, self.bias
+        if self.frozen is None:
+            return self.weight.to(self.dtype), self.bias.to(self.dtype)
+        if torch.is_grad_enabled():
+            raise RuntimeError('Dense: weights cast once (cast_weights_once) '
+                               'carry no gradient')
+        return self.frozen
+
     def forward(self, x):
         if self.dtype == PARAM_DTYPE:
             return F.linear(x, self.weight, self.bias)
-        if self.frozen is None:
-            w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
-        elif torch.is_grad_enabled():
-            raise RuntimeError('Dense: weights cast once (cast_weights_once) '
-                               'carry no gradient')
-        else:
-            w, b = self.frozen
+        w, b = self.weights()
         return F.linear(x.to(self.dtype), w, b)
 
 

@@ -14,7 +14,8 @@ Here:
   global-batch shares of ``parallel/global_batch.py`` the sum is the
   gradient of the global batch's loss.
 
-The ``model`` axis (tensor parallelism) is not ported.
+The ``model`` axis (tensor parallelism) is parallel/mesh.py's grid and
+parallel/tensor.py's layers.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-"""The data-parallel train step on N ranks against the one-process step
-(port of ``__graft_entry__.dryrun_multichip``), and the harness that runs
-that comparison for any train state and global batch.
+"""The data-parallel and the tensor-parallel train steps on N ranks
+against the one-process step (port of ``__graft_entry__.dryrun_multichip``),
+and the harnesses that run those comparisons for any train state and
+global batch.
 
 The CLI spawns N ranks (gloo on the CPU; with ``--cuda`` NCCL, rank r on
 ``cuda:r % device_count``), builds ``tiny_test_config`` with a 512-wide
@@ -12,11 +13,15 @@ dropout 0 so that the ranks' masks do not matter, and on a global batch of
   parameters replicated from rank 0;
 - the epoch-runner arm: ``make_epoch_runner`` over the same batch
   gathered on the device, one iteration;
-- the TP arm (tensor parallelism on a model axis) is not ported: it says
-  so and waits for ROADMAP A.16b.
+- with N >= 4 and even, the TP arm: the same step on an (N/2 x 2) grid
+  (``parallel.mesh.make_grid``), the decoder Megatron-sharded on the
+  model axis (``shard_params_tp``); it fails if ``tp_param_specs`` shards
+  no decoder parameter (JAX's guard against a vacuous pass).
 Each arm is held against the one-process step on the whole batch, run on
 rank 0 from the same state: every metric and every group's AdamW moments
-within 1e-4 relative, every rank's parameters rank 0's.
+within 1e-4 relative (the TP arm's total also within JAX's 2e-4), every
+rank's parameters rank 0's; in the TP arm the replicated parameters and
+their gradients are equal across each model group, bit for bit.
 
     python -m superconductor_vae_tpu_torch.scripts.dryrun_multichip 4
     python -m superconductor_vae_tpu_torch.scripts.dryrun_multichip 2 --cuda
@@ -25,8 +30,12 @@ within 1e-4 relative, every rank's parameters rank 0's.
 same comparison for a job of train states, configs and global batches
 (tests/test_torch_port_distributed.py holds its results to JAX's step;
 chip_smoke.py runs it at run4 width with K1 counted); ``check_dp`` holds
-its results to tolerances.  ``spawn`` starts ranks of any function, joined
-through ``parallel.init_distributed``.
+its results to tolerances.  ``run_tp(job, world, device, n_model)``
+(``start_tp``) and ``check_tp`` are their tensor-parallel counterparts,
+which also decode a batch greedily through the TP decoder and the whole
+one (tests/test_torch_port_tensor_parallel.py, chip_smoke.py's TP phase).
+``spawn`` starts ranks of any function, joined through
+``parallel.init_distributed``.
 """
 
 from __future__ import annotations
@@ -50,21 +59,29 @@ import torch.multiprocessing as mp
 from superconductor_vae_tpu_torch.parallel import broadcast_, init_distributed, shard_batch
 
 TOL = 1e-4
+TP_TOTAL_TOL = 2e-4       # __graft_entry__'s rtol = atol for the TP arm's total
 
 
-def spawn(fn, world: int, job_dir, device: str = 'cpu', backend=None):
+def spawn(fn, world: int, job_dir, device: str = 'cpu', backend=None,
+          timeout: Optional[float] = None):
     """Starts ``fn(rank, world, job_dir, device)`` in ``world`` spawned
     ranks joined through a file in ``job_dir`` by ``init_distributed``
     (NCCL on CUDA and gloo on the CPU unless ``backend`` says otherwise;
     rank r on ``cuda:r % device_count``; one torch thread a rank on the
     CPU).  Returns at once a function that waits for the ranks and raises
-    if one failed."""
+    if one failed, or kills them and raises ``TimeoutError`` once
+    ``timeout`` seconds have passed since the start (a hang fails)."""
     ctx = mp.start_processes(_entry, args=(fn, world, str(job_dir), str(device), backend),
                              nprocs=world, start_method='spawn', join=False)
+    end = None if timeout is None else time.monotonic() + timeout
 
     def wait():
-        while not ctx.join():
-            pass
+        while not ctx.join(timeout=None if end is None else 1.0):
+            if end is not None and time.monotonic() > end:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise TimeoutError(f'{world} ranks of {fn.__name__} still running after '
+                                   f'{timeout:g} s')
     return wait
 
 
@@ -206,10 +223,11 @@ def dp_steps(rank: int, world: int, job_dir: Path, device: torch.device) -> None
                pickle_protocol=pickle.HIGHEST_PROTOCOL)
 
 
-def start_dp(job: dict, world: int, device: str = 'cpu', backend=None):
-    """``dp_steps`` over ``job`` in ``world`` spawned ranks (``spawn``);
-    returns at once a function that waits for them and returns their
-    results.
+def start_dp(job: dict, world: int, device: str = 'cpu', backend=None, fn=dp_steps,
+             timeout: Optional[float] = None):
+    """``dp_steps`` (or ``fn``) over ``job`` in ``world`` spawned ranks
+    (``spawn``, with its ``timeout``); returns at once a function that
+    waits for them and returns their results.
 
     ``job``: ``cases`` (``dp_case``), ``batches`` (global batches of CPU
     tensors), ``max_len`` (the tokenizer's, for the LUTs), ``seed`` (the
@@ -227,7 +245,7 @@ def start_dp(job: dict, world: int, device: str = 'cpu', backend=None):
         (d / f'state{c}.pt').write_bytes(case['state'])
     torch.save(dict(job, cases=[{k: v for k, v in case.items() if k != 'state'}
                                 for case in job['cases']]), d / 'job.pt')
-    wait = spawn(dp_steps, world, d, device, backend)
+    wait = spawn(fn, world, d, device, backend, timeout)
 
     def results() -> List[dict]:
         try:
@@ -278,6 +296,209 @@ def check_dp(ranks: List[dict], tol: dict, grad_norm_tol: dict, moment_tol: floa
     return worst
 
 
+def _replicated_equal(state, grid) -> bool:
+    """Whether this rank's replicated parameters (every one but the
+    decoder's shards) and their gradients are those of the first rank of
+    its model group, bit for bit."""
+    from superconductor_vae_tpu_torch.parallel.tensor import tp_sharded
+    shards = {id(p) for n, p in state.decoder.named_parameters()
+              if n in tp_sharded(state.decoder)}
+    flat = torch.cat([t.detach().reshape(-1).float() for params, _ in state.groups()
+                      for p in params if id(p) not in shards
+                      for t in (p, p.grad if p.grad is not None else torch.zeros_like(p))])
+    ref = flat.clone()
+    broadcast_([ref], grid.model_group, src=grid.data_index * grid.n_model)
+    return bool(torch.equal(ref, flat))
+
+
+def _decode(rank, grid, job, device, luts) -> dict:
+    """``job['decode']``: ``eval_batch`` of its batch through the
+    tensor-parallel decoder of its case's state on every rank and, on rank
+    0, through the whole decoder, in each of its compute ``dtypes``
+    (float32 unless it says otherwise: the models rebuilt in that dtype
+    from the same parameters); K1's launches counted over the first.
+    Keys 'tp' and 'one', then 'tp bfloat16', 'one bfloat16', ..."""
+    from superconductor_vae_tpu_torch.models import FormulaDecoder, MaterialsEncoder
+    from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+    from superconductor_vae_tpu_torch.parallel import shard_params_tp
+    from superconductor_vae_tpu_torch.training import eval_batch
+    spec = job['decode']
+    sync = torch.cuda.synchronize if device.type == 'cuda' else (lambda: None)
+    whole = torch.load(job['dir'] / f'state{spec["case"]}.pt', map_location=device,
+                       weights_only=False)
+    batch = {k: v.to(device) for k, v in spec['batch'].items()}
+    masks = luts['type_masks'] if spec['type_masks'] else None
+    keep = ('generated', 'margin', 'tf_pred')
+    out = {}
+    for dtype in spec.get('dtypes', (torch.float32,)):
+        encoder, decoder = whole.encoder, whole.decoder
+        if dtype != decoder.dtype:
+            encoder = MaterialsEncoder(encoder.cfg, device=device, dtype=dtype)
+            encoder.load_state_dict(whole.encoder.state_dict())
+            decoder = FormulaDecoder(decoder.cfg, device=device, dtype=dtype)
+            decoder.load_state_dict(whole.decoder.state_dict())
+        encoder, decoder = encoder.eval(), decoder.eval()
+        tp_decoder = shard_params_tp(decoder, grid).eval()
+        suffix = '' if dtype == torch.float32 else ' ' + str(dtype).split('.')[1]
+        with torch.no_grad():
+            for name, dec in (('tp', tp_decoder), ('one', decoder)):
+                if name == 'one' and rank != 0:
+                    break
+                sync()
+                if name == 'tp':
+                    dist.barrier(grid.model_group)
+                decode_step_attention.launches = 0
+                t0 = time.perf_counter()
+                got = eval_batch(encoder, dec, batch, spec['gcfg'], type_masks=masks)
+                sync()
+                out[name + suffix] = {'seconds': time.perf_counter() - t0,
+                                      'k1': decode_step_attention.launches,
+                                      **{k: got[k].float().cpu() if got[k].is_floating_point()
+                                         else got[k].cpu() for k in keep}}
+    return out
+
+
+def tp_steps(rank: int, world: int, job_dir: Path, device: torch.device) -> None:
+    """One rank of ``run_tp``: on the job's (world / n_model x n_model)
+    grid, for each case, this rank's ``shard_params_tp`` of the case's
+    state, then the tensor-parallel step over each global batch in turn
+    (this rank's data index's shard of it); after each, the whole state
+    gathered (``gather_params_tp``), which on rank 0 is held against the
+    one-process step from the state gathered before it.  K1's launches are
+    counted over the TP step alone.  Then the job's decode.  Writes
+    rank<r>.pt."""
+    from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+    from superconductor_vae_tpu_torch.parallel import (gather_params_tp, make_grid,
+                                                       shard_params_tp)
+    from superconductor_vae_tpu_torch.parallel.tensor import tp_sharded
+    from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
+    from superconductor_vae_tpu_torch.training import (build_luts, make_epoch_runner,
+                                                       make_train_step)
+    job = torch.load(job_dir / 'job.pt', weights_only=False)
+    grid = make_grid(n_model=job['n_model'])
+    cuda = device.type == 'cuda'
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    luts = build_luts(default_tokenizer(max_len=job['max_len']), device=device)
+    batches = [{k: v.to(device) for k, v in b.items()} for b in job['batches']]
+    seed, snapshots = job['seed'], job['snapshots']
+    cases = []
+    for c, case in enumerate(job['cases']):
+        tcfg, dyn, rl = case['tcfg'], case['dyn'], case['rl']
+        one_step = make_train_step(tcfg, luts, rl_enabled=rl)
+        out = {}
+        for path in case['paths']:
+            whole = torch.load(job_dir / f'state{c}.pt', map_location=device,
+                               weights_only=False)
+            state = shard_params_tp(whole, grid)
+            n_sharded = len(tp_sharded(state.decoder))
+            if path == 'step':
+                step = make_train_step(tcfg, luts, rl_enabled=rl, group=grid)
+            else:
+                runner = make_epoch_runner(tcfg, luts, rl_enabled=rl, group=grid)
+                step = lambda s, b, k, d: runner(s, b, np.arange(len(b['tc']))[None],  # noqa: E731
+                                                 k, d)
+            steps = []
+            for batch in batches[:case['steps']]:
+                ref = whole if rank == 0 else None
+                del whole
+                shard = shard_batch(batch, grid.data_group)
+                sync()
+                dist.barrier()
+                decode_step_attention.launches = 0
+                t0 = time.perf_counter()
+                state, metrics = step(state, shard if path == 'step' else batch, seed, dyn)
+                sync()
+                rec = {'seconds': time.perf_counter() - t0, 'k1': decode_step_attention.launches,
+                       'rows': len(shard['tc']),
+                       'metrics': {k: v.item() for k, v in metrics.items()},
+                       'replicated_equal': _replicated_equal(state, grid)}
+                whole = gather_params_tp(state, grid)
+                if rank == 0:
+                    t0 = time.perf_counter()
+                    ref, want = one_step(ref, batch, seed, dyn)
+                    sync()
+                    rec.update(one_seconds=time.perf_counter() - t0,
+                               want={k: v.item() for k, v in want.items()},
+                               moments_worst=_moments_worst(whole, ref))
+                    if snapshots:
+                        rec['snapshot'], rec['one'] = snapshot(whole), snapshot(ref)
+                    del ref
+                steps.append(rec)
+            out[path] = {'steps': steps, 'n_sharded': n_sharded,
+                         'same_as_rank0': _same_as_rank0(whole, dist.group.WORLD)}
+            del state, whole
+        cases.append(out)
+    decoded = _decode(rank, grid, dict(job, dir=job_dir), device, luts) \
+        if job.get('decode') else None
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 if cuda else None
+    torch.save({'cases': cases, 'decode': decoded, 'peak_gib': peak,
+                'grid': (grid.data_index, grid.model_index)}, job_dir / f'rank{rank}.pt',
+               pickle_protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def start_tp(job: dict, world: int, device: str = 'cpu', n_model: int = 2, backend=None,
+             timeout: Optional[float] = None):
+    """``tp_steps`` over ``job`` in ``world`` spawned ranks on a (world /
+    ``n_model`` x ``n_model``) grid; returns at once a function that waits
+    for them and returns their results.
+
+    ``job`` as ``start_dp``'s, and optionally ``decode``: ``case`` (whose
+    state decodes), ``batch`` (an eval batch of CPU tensors), ``gcfg`` (a
+    ``GenerationConfig``), ``type_masks`` (whether the gates get the LUT's
+    type masks) and optionally ``dtypes`` (the compute dtypes to decode
+    in; float32 alone by default).  The results are each rank's: per case, per path,
+    ``steps`` (as ``start_dp``'s, and ``replicated_equal``: the replicated
+    parameters and their gradients equal to the first model rank's),
+    ``n_sharded`` (the decoder's sharded parameters) and ``same_as_rank0``
+    (the gathered parameters and moments after the last step); ``decode``
+    ({'tp': ..., 'one': ... on rank 0, and 'tp bfloat16' ... for another
+    dtype}: ``generated``, ``margin``, ``tf_pred``, ``seconds``, ``k1``);
+    ``grid`` (data and model index);
+    ``peak_gib``."""
+    return start_dp(dict(job, n_model=n_model), world, device, backend, tp_steps, timeout)
+
+
+def run_tp(job: dict, world: int, device: str = 'cpu', n_model: int = 2,
+           backend=None, timeout: Optional[float] = None) -> List[dict]:
+    """``start_tp``'s results, waited for."""
+    return start_tp(job, world, device, n_model, backend, timeout)()
+
+
+def check_tp(ranks: List[dict], tol: dict, grad_norm_tol: dict, moment_tol: float,
+             what: str) -> float:
+    """``check_dp``'s checks on a ``run_tp``'s results, and: the decoder
+    has sharded parameters, every rank's replicated parameters and their
+    gradients are its model group's first rank's after every step, every
+    rank decoded the same streams, and the TP ``total`` is within JAX's
+    dryrun tolerance (``TP_TOTAL_TOL``) of the one-process step's.  Returns
+    the worst moment difference."""
+    worst = check_dp(ranks, tol, grad_norm_tol, moment_tol, what)
+    for c, case in enumerate(ranks[0]['cases']):
+        for path, res in case.items():
+            if res['n_sharded'] == 0:
+                raise RuntimeError(f'{what}: case {c}, {path}: tensor parallelism degraded to '
+                                   'replication: tp_param_specs shards no decoder parameter')
+            for i, rec in enumerate(res['steps']):
+                g, w = rec['metrics']['total'], rec['want']['total']
+                if not abs(g - w) <= TP_TOTAL_TOL * (1 + abs(w)):
+                    raise RuntimeError(f'{what}: case {c}, {path}, step {i}: total {g} '
+                                       f'against {w}')
+                for r, other in enumerate(ranks):
+                    if not other['cases'][c][path]['steps'][i]['replicated_equal']:
+                        raise RuntimeError(f'{what}: case {c}, {path}, step {i}: rank {r}\'s '
+                                           'replicated parameters or gradients differ from '
+                                           'its model group\'s')
+    for key, res in (ranks[0]['decode'] or {}).items():
+        if key.startswith('tp'):
+            for r, other in enumerate(ranks):
+                if not torch.equal(other['decode'][key]['generated'], res['generated']):
+                    raise RuntimeError(f'{what}: rank {r} decoded other streams ({key})')
+    return worst
+
+
 def tiny_job(world: int) -> dict:
     """The CLI's job: ``tiny_test_config`` with a 512-wide latent at
     ``TrainConfig()``'s defaults, physics-Z on, dropout 0 everywhere, a
@@ -309,16 +530,35 @@ def main(argv=None) -> None:
     p.add_argument('--cuda', action='store_true',
                    help='NCCL, rank r on cuda:r % device_count (default: gloo on the CPU)')
     args = p.parse_args(argv)
-    ranks = run_dp(tiny_job(args.n), args.n, 'cuda' if args.cuda else 'cpu')
+    device = 'cuda' if args.cuda else 'cpu'
+    job = tiny_job(args.n)
+    ranks = run_dp(job, args.n, device)
     tol = dict(rtol=TOL, atol=1e-6)
     worst = check_dp(ranks, tol, tol, TOL, f'dryrun_multichip({args.n})')
     res = ranks[0]['cases'][0]
+    n_model = 2 if args.n >= 4 and args.n % 2 == 0 else 1
+    tp_note = f'TP arm skipped: n_model={n_model}'
+    if n_model > 1:
+        tp = run_tp(dict(job, cases=[dict(job['cases'][0], paths=('step',))]), args.n, device,
+                    n_model)
+        tp_worst = check_tp(tp, dict(rtol=1e-5, atol=1e-7), tol, TOL,
+                            f'dryrun_multichip({args.n}) TP arm')
+        rec = tp[0]['cases'][0]['step']
+        dp_total = res['step']['steps'][0]['metrics']['total']
+        if not abs(rec['steps'][0]['metrics']['total'] - dp_total) <= TP_TOTAL_TOL * (
+                1 + abs(dp_total)):
+            raise RuntimeError(f'dryrun_multichip({args.n}): the TP arm\'s total '
+                               f'{rec["steps"][0]["metrics"]["total"]} against the DP '
+                               f'arm\'s {dp_total}')
+        tp_note = (f"TP arm on a {args.n // n_model} x {n_model} grid matches: loss="
+                   f"{rec['steps'][0]['metrics']['total']:.4f} (moments {tp_worst:.1e}), "
+                   f"{rec['n_sharded']} sharded decoder parameters")
     backend = 'nccl' if args.cuda else 'gloo'
     print(f'dryrun_multichip({args.n}, {backend}): OK — '
           f"DP loss={res['step']['steps'][0]['metrics']['total']:.4f}, "
           f"epoch_runner={res['runner']['steps'][0]['metrics']['total']:.4f}, each the "
           f"one-process step's within {TOL:g} (moments {worst:.1e}), parameters equal on "
-          f'{args.n} ranks (TP arm: tensor parallelism waits for ROADMAP A.16b)', flush=True)
+          f'{args.n} ranks; {tp_note}', flush=True)
 
 
 if __name__ == '__main__':

@@ -31,7 +31,7 @@ import dataclasses
 DEFAULT_CSV = 'data/processed/jarvis_merged.csv.gz'
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('--csv', default=DEFAULT_CSV)
     p.add_argument('--epochs', type=int, default=None)
@@ -59,15 +59,15 @@ def main(argv=None):
                    metavar='KEY=VALUE',
                    help='override any TrainConfig field, e.g. '
                         '--set rl_reactivation_min_exact=0.85')
-    args = p.parse_args(argv)
+    return p
 
-    import os
 
-    import torch
-
+def configs(p: argparse.ArgumentParser, args: argparse.Namespace):
+    """(TrainConfig, ModelConfig or None) from the parsed flags: the
+    flags and then each ``--set`` over ``TrainConfig()``; an unknown
+    field is ``p``'s error."""
     from superconductor_vae_tpu_torch.models.config import ModelConfig, tiny_test_config
-    from superconductor_vae_tpu_torch.parallel import init_distributed
-    from superconductor_vae_tpu_torch.training import TrainConfig, train
+    from superconductor_vae_tpu_torch.training import TrainConfig
 
     tcfg = TrainConfig()
     if args.epochs is not None:
@@ -101,6 +101,21 @@ def main(argv=None):
     if args.pallas_decode:
         mcfg = dataclasses.replace(mcfg or ModelConfig(max_len=tcfg.max_formula_len),
                                    pallas_decode=True)
+    return tcfg, mcfg
+
+
+def main(argv=None):
+    p = build_parser()
+    args = p.parse_args(argv)
+
+    import os
+
+    import torch
+
+    from superconductor_vae_tpu_torch.parallel import init_distributed
+    from superconductor_vae_tpu_torch.training import train
+
+    tcfg, mcfg = configs(p, args)
 
     device = 'cpu' if args.cpu else 'cuda'
     distributed = int(os.environ.get('WORLD_SIZE', 1)) > 1

@@ -56,6 +56,23 @@ are summed into the global batch's.  The round trip runs on the global
 batch's first rows, which under contiguous shards are rank 0's.  Dropout
 masks are drawn per rank (rank 0's from the one-process seed), so parity
 with one process holds at dropout 0.
+
+Tensor parallelism (``group`` a ``parallel.mesh.Grid``): the decoder is
+the rank's shard of a tensor-parallel one (``parallel.mesh.shard_params_tp``)
+and the batch its data index's shard.  The ranks of a model group hold the
+same rows, so the global batch, its shares, its row gathers, the gradient
+sum and the metrics run over the data group alone (nothing of them with
+one data index); the round trip runs on data index 0's ranks, each on its
+heads of the rows.  Every rank of a model group draws the dropout masks
+of its data index, so the replicated activations take the same masks
+(parallel/tensor.py ``shard_dropout``: a shard's mask is its slice of the
+whole one), and its rollouts sample from the same generator over the
+same whole logits.  The replicated parameters' gradients are the same
+on every rank of the group (``f`` and ``g`` of parallel/tensor.py), the
+shards' are their own; the global-norm clip sums the shards' squares over
+the model group once and counts the replicated ones once: the whole
+gradient's norm, as optax's ``clip_by_global_norm`` takes it of JAX's
+sharded arrays.
 """
 
 from __future__ import annotations
@@ -77,7 +94,10 @@ from ..ops.rl import rloo_loss, scst_loss
 from ..ops.round_trip import round_trip_loss
 from ..ops.theory import theory_loss
 from ..parallel.dist import all_reduce_grads_, all_reduce_metrics
-from ..parallel.global_batch import GlobalBatch, active, global_batch, global_rows
+from ..parallel.global_batch import (GlobalBatch, active, all_reduce_sum_, global_batch,
+                                     global_rows)
+from ..parallel.mesh import Grid
+from ..parallel.tensor import tp_sharded
 from ..tokenizer import FractionAwareTokenizer
 from ..utils.device import resolve_device
 from ..utils.rng import stream_seed
@@ -207,18 +227,31 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float):
     return optimizer
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (``optax.global_norm``)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+def global_norm(grads: List[torch.Tensor], sharded: Optional[List[bool]] = None,
+                model_group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (``optax.global_norm``).
+    With ``sharded`` (a flag a gradient: this rank's shard of a
+    tensor-parallel parameter) the shards' squares are summed over
+    ``model_group`` and the other gradients' (the same on every rank of
+    it) counted once: the norm of the whole gradients, on every rank."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if not sharded or not any(sharded):
+        return torch.linalg.vector_norm(norms)
+    sq = norms.square()
+    mask = torch.tensor(sharded, device=sq.device)
+    return torch.sqrt(all_reduce_sum_(sq[mask].sum(), model_group) + sq[~mask].sum())
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         sharded: Optional[List[bool]] = None,
+                         model_group=None) -> torch.Tensor:
     """``optax.clip_by_global_norm`` in place: when the global norm is at
     least ``max_norm`` every gradient becomes ``(g / norm) * max_norm``,
     else it is left alone; no epsilon (``torch.nn.utils.clip_grad_norm_``
     divides by norm + 1e-6 instead).  Returns the norm before clipping.
-    Decided on the device: no wait for the host."""
-    norm = global_norm(grads)
+    Decided on the device: no wait for the host.  ``sharded`` and
+    ``model_group`` as ``global_norm``'s."""
+    norm = global_norm(grads, sharded, model_group)
     keep = norm < max_norm
     one = torch.ones((), device=norm.device, dtype=norm.dtype)
     torch._foreach_div_(grads, torch.where(keep, one, norm))
@@ -445,8 +478,15 @@ def make_train_step(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
     With a process ``group`` (``torch.distributed.group.WORLD`` for the
     default one) ``batch`` is this rank's shard of the global batch and the
     step is data-parallel (see the module's docstring); the state's
-    parameters must be equal on every rank (``parallel.replicate``)."""
+    parameters must be equal on every rank (``parallel.replicate``).  With
+    a ``parallel.mesh.Grid`` the step is data- and tensor-parallel: the
+    state is this rank's ``shard_params_tp`` of one whole state, and
+    ``batch`` its data index's shard of the global batch."""
     compute_dtype(tcfg)
+    grid = group if isinstance(group, Grid) else None
+    data_group = grid.data_group if grid is not None else group
+    data_parallel = group is not None and (grid is None or grid.n_data > 1)
+    model_group = grid.model_group if grid is not None else None
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor], seed: int,
              dyn: Mapping[str, float]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -457,10 +497,12 @@ def make_train_step(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
         device = groups[0][0][0].device
         cuda = [device] if device.type == 'cuda' else []
         gb = None
-        if group is not None:
-            gb = GlobalBatch(rank=torch.distributed.get_rank(group),
-                             world=torch.distributed.get_world_size(group),
-                             local_rows=batch['tokens'].shape[0], group=group)
+        if data_parallel:
+            gb = GlobalBatch(rank=torch.distributed.get_rank(data_group),
+                             world=torch.distributed.get_world_size(data_group),
+                             local_rows=batch['tokens'].shape[0], group=data_group)
+        shards = ({id(p) for n, p in state.decoder.named_parameters()
+                   if n in tp_sharded(state.decoder)} if grid is not None else set())
         generator = None
         if rl_enabled:
             generator = torch.Generator(device=device).manual_seed(
@@ -480,21 +522,23 @@ def make_train_step(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             if gb is not None:
-                all_reduce_grads_(params, group)
+                all_reduce_grads_(params, data_group)
             grads = [p.grad for p in params]
+            sharded = [id(p) in shards for p in params]
             if isinstance(opt, MultiSteps):
                 # the metric is this mini-step's norm; the clip sees the mean
-                norms.append(global_norm(grads))
+                norms.append(global_norm(grads, sharded, model_group))
                 if not opt.accumulate(grads):
                     continue
-                clip_by_global_norm_(grads, tcfg.grad_clip)
+                clip_by_global_norm_(grads, tcfg.grad_clip, sharded, model_group)
             else:
-                norms.append(clip_by_global_norm_(grads, tcfg.grad_clip))
+                norms.append(clip_by_global_norm_(grads, tcfg.grad_clip, sharded,
+                                                  model_group))
             opt.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         if gb is not None:
-            metrics = all_reduce_metrics(metrics, group)
+            metrics = all_reduce_metrics(metrics, data_group)
         metrics['grad_norm'] = torch.sqrt(norms[0] ** 2 + norms[1] ** 2)
         return state, metrics
 
@@ -513,7 +557,8 @@ def make_epoch_runner(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
     metric summed over the steps, as device tensors; the caller reads
     them once.  With a process ``group`` ``idx_mat`` is the global batches'
     rows, of which each rank takes its contiguous block of columns, and the
-    sums are the global batches'."""
+    sums are the global batches'.  With a ``parallel.mesh.Grid`` the
+    columns are split over the data indices."""
     step = make_train_step(tcfg, luts, rl_enabled=rl_enabled, group=group)
 
     def run(state: TrainState, data: Mapping[str, torch.Tensor], idx_mat, seed: int,
@@ -521,7 +566,11 @@ def make_epoch_runner(tcfg: TrainConfig, luts: Mapping[str, torch.Tensor],
         device = next(iter(data.values())).device
         idx_mat = np.asarray(idx_mat)
         if group is not None:
-            rank, n = torch.distributed.get_rank(group), torch.distributed.get_world_size(group)
+            if isinstance(group, Grid):
+                rank, n = group.data_index, group.n_data
+            else:
+                rank, n = (torch.distributed.get_rank(group),
+                           torch.distributed.get_world_size(group))
             if idx_mat.shape[1] % n:
                 raise ValueError(f'batch of {idx_mat.shape[1]} rows does not divide '
                                  f'over {n} ranks')
