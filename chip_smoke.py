@@ -43,11 +43,25 @@
    the plain attention path.  The two token streams must agree except where
    the top two logits were within 1e-4; 8 rows also run on the CPU and
    must agree with the card.
-6. Corpus phase: training/evaluate.py evaluate_autoregressive over the
-   first 8,192 kept rows (32 batches of 256) through K1,
-   with the same weights: formulas/s, the decode steps summed over the
-   batches, K1 launched 12 times a decode step, and the first 1,024 rows'
-   exact match equal to the e2e phase's.
+6. Real-weights phase: run4's trained weights (epoch 899), read in place
+   from the committed Orbax snapshot (results/run4/ckpt_snapshot/state) by
+   the port's own reader (checkpoint/ocdbt.py: OCDBT, zarr v2, libzstd
+   through ctypes), float32 from their bf16 values ('real' lines).  (a) The
+   read's seconds and GB/s, every array's SHA-256 against the table that
+   the CPU tests hold against Orbax (tests/torch_port_run4_sha256.json);
+   (b) the data phase's 1,024 rows through eval_batch with the meta's
+   gates, once through K1 and once through the plain attention path:
+   streams equal but at near-ties (each excused row's gap printed), K1 = 12
+   x decode steps; 8 rows' encoder outputs and TF logits card against CPU
+   within 1e-4 of the largest value; (c) evaluate_autoregressive over all
+   26,917 rows through K1 (the host scoring batch b while the card decodes
+   b+1): true-AR and TF exact match within 5 rows of the CPU's (0.9841364,
+   0.9846194), K1 = 12 x decode steps, formulas/s and peak memory; the rows
+   whose exact match differs from the JAX package's committed eval of these
+   weights, and then the lowest margins, 32 rows, also run on the CPU, and
+   a row that differs there must be a near-tie (gap printed); the serial
+   eval loop and the overlapped one timed in turns on 1,024 rows, each
+   one's busy share from the device time of one profiled run.
 6b. Speculative phase: speculative decoding (generation/speculative.py,
    k=4, pure greedy) with the e2e phase's weights on its 1,024 rows, on a
    twin of its decoder with the plain cache layout that holds the same
@@ -177,17 +191,21 @@
    synthetic data: its train probe (5 steps here, 20 standalone), RL probe
    (SCST, rl_w 1; 1 warm + 1 timed chunk of 8 steps here, 1 + 3
    standalone) and gen probe (greedy with bench.py's gates and early exit,
-   1 + 3 calls) with random heads, as the bench runs them; then RL and gen
-   again with the stop and type heads fixed (every rollout 29 steps), and
-   gen casting the weights at every call instead of once a rollout; one
-   bf16 train step and one SCST step under the profiler.  Checks (a) the
+   1 + 3 calls) with random heads, as the bench runs them; then gen again
+   with the stop and type heads fixed (every rollout 29 steps; no warm-up
+   call, the first pass warmed it); one SCST step under the profiler.
+   Checks (a) the
    pre-boundary logits and the KV caches bf16, parameters and AdamW
    moments float32, losses finite, and K1's bf16 instance launched 12
    times a decode step of every probe rollout (the round trips' included)
    and nothing else; (c) a
    29-step greedy rollout of 512 rows through K1 against the plain decode
-   path: the two paths' logits over K1's stream within half of TIE_BF16,
-   the streams equal except where the top two logits were within TIE_BF16;
+   path and the float32 decode of the same weights: over K1's stream, K1
+   bf16's logits at most min(3 x the plain bf16 path's distance from
+   float32, 2**-4) from float32's, K1 at each call within one bf16
+   rounding of the float64 attention of its inputs, the streams equal
+   except where the top two logits were within twice the two bf16 paths'
+   largest difference;
    (d) one bf16 train step of 8 rows at ModelConfig() on the card against
    the CPU: the loss terms and the AdamW first moments within half of the
    CPU's own bf16-vs-float32 difference; the updates printed beside them.
@@ -245,14 +263,15 @@
    in chunks of 2048 (the third padded) through K1 against the plain
    attention path (tokens equal up to EOS but at near-ties), 8 of its rows
    against the CPU, formulas/s; (d) HoldoutSearch.search of 1 target at
-   budget 2048 with every tier at its default steps, without zoom-in
+   budget 1024 with every tier, the inversion descent at 128 steps (its
+   default 384), without zoom-in
    rounds (random weights find nothing, so every tier runs): each tier's
    seconds, the inversion's steps/s, the host scoring's seconds; (e) card against CPU from the same
    weights: the first guided (both slot conventions) and inversion
    gradients with respect to z on 4 starts (1e-4 of the largest
    component), z after 8 Adam steps (1e-3), predict_tc_mc at dropout 0
    (mean = tc_pred, std 0); (f) the port's holdout CLI on the loop phase's
-   checkpoint with --pallas-decode, one target at budget 2048 with a
+   checkpoint with --pallas-decode, one target at budget 1024 with a
    stream (no zoom-in rounds, an inversion of 48 steps), then
    --oracle-only, the stream summarised by the port's
    holdout_summarize.  In (b), (c), (d) and (f) K1 runs exactly 12 x the
@@ -995,12 +1014,16 @@ def compare_streams(got, want, eos_id, what, tie=TIE):
 
 
 def trace_batch(torch, fn, what, own=None):
-    """``fn`` (one batch, or one step) under torch.profiler: the device's
-    busy share of the wall time (kernel time summed over the call), the
-    top kernels and, if ``own`` is given, the kernels whose names hold it."""
+    """``fn`` (one batch, or one step) under torch.profiler recording the
+    device alone (recording the host's operators as well slowed the host's
+    launches, lowering the busy share, and its events took about 1 ms each
+    to sum, a minute of the smoke): the device's busy
+    share of the wall time (kernel time summed over the call), the top
+    kernels and, if ``own`` is given, the kernels whose names hold it.
+    Returns the device time in seconds (None where none was recorded)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1017,7 +1040,7 @@ def trace_batch(torch, fn, what, own=None):
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
         print('trace: the profiler recorded no device time; busy share not measured')
-        return
+        return None
     print(f'trace: {what} under the profiler: wall {wall_us / 1e3:.1f} ms, '
           f'device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), '
           f'{sum(e.count for e in kernels)} kernel launches')
@@ -1036,6 +1059,7 @@ def trace_batch(torch, fn, what, own=None):
           f'busy) over {sum(e.count for e in gemm)} launches; the rest '
           f'{(busy_us - gemm_us) / 1e3:.1f} ms over '
           f'{sum(e.count for e in kernels) - sum(e.count for e in gemm)} launches')
+    return busy_us / 1e6
 
 
 def fix_rollout_heads(torch, decoder):
@@ -1067,8 +1091,7 @@ def seeded_models(torch, dev, cfg, dtype=None):
 def e2e_phase(torch, dev, ds, batches):
     """The eval path on the data phase's batches, through K1 and through the
     plain attention path, then 8 rows on the CPU, and one batch under the
-    profiler.  Returns K1's launches, the encoder and the K1 decoder, and the
-    true-AR exact match of each row."""
+    profiler.  Returns K1's launches, and the encoder and the K1 decoder."""
     import numpy as np
     from superconductor_vae_tpu_torch.models import (
         FormulaDecoder, MaterialsEncoder, config_from_meta)
@@ -1159,53 +1182,267 @@ def e2e_phase(torch, dev, ds, batches):
           f'near-tie divergences {ties}; true-AR exact (random weights) {exact:.4f}')
     for r in range(3):
         print(f'e2e: {ds.formulas[r]!r} -> {tok.decode(gen_all[r])!r}')
-    return launches, (encoder, decoder), _exact_match(gen_all, tgt)
+    return launches, (encoder, decoder)
 
 
-CORPUS_EVAL_BATCHES = 32          # 8,192 rows: the smoke's time limit
+RUN4 = ROOT / 'results' / 'run4' / 'ckpt_snapshot'
+RUN4_SHA256 = ROOT / 'tests' / 'torch_port_run4_sha256.json'   # held against Orbax on the CPU
+# run4's exact match over all 26,917 rows on the CPU: the port's eval CLI
+# and the JAX package's, row for row (tests/test_torch_port_dataset.py)
+RUN4_CPU = {'ar': 0.9841364193632277, 'tf': 0.9846193855184456}
+RUN4_ROW_SLACK = 5                # rows the card may differ from the CPU by, near-ties
+# the JAX package's own eval of these weights (epoch 899), committed with them
+RUN4_ERRORS = ROOT / 'results' / 'run4' / 'final_eval_e899_errors.jsonl'
+REAL_CPU_ROWS = 32                # the full eval's rows that also run on the CPU
+REAL_TURN_BATCHES = 4             # the serial loop and the overlapped one, timed in turns
+REAL_REL = 1e-4                   # card vs CPU, of the largest magnitude
 
 
-def corpus_phase(torch, dev, ds, encoder, decoder, eval_exact):
-    """training/evaluate.py evaluate_autoregressive over the first
-    CORPUS_EVAL_BATCHES batches of BATCH rows of the corpus through K1,
-    with the e2e phase's weights and run4's gates; K1's count at 0 just
-    before, read just after, must be layers x the decode steps summed over
-    the batches.  The first rows' true-AR exact match must equal the e2e
-    phase's."""
+def serial_eval(encoder, decoder, ds, tcfg, luts, n_batches):
+    """The eval loop without the overlap: each batch decoded, copied to
+    the host and scored before the next is launched (the loop the port
+    ran before, held bit-equal to the overlapped one on the CPU)."""
     import numpy as np
+    from superconductor_vae_tpu_torch.training import evaluate as ev
+    gcfg = ev.eval_generation_config(tcfg, decoder.cfg.max_len)
+    dev = next(encoder.parameters()).device
+    parts = []
+    for b in range(n_batches):
+        idx = np.arange(b * BATCH, (b + 1) * BATCH)
+        out = ev.eval_batch(encoder, decoder, ev._to_device(ds.batch(idx), dev), gcfg,
+                            type_masks=luts['type_masks'])
+        host = {k: (v.float() if v.is_floating_point() else v).cpu() for k, v in out.items()}
+        parts.append(ev._score_batch(host, None, idx, ds, None))
+    return ev.summarize_scores(parts, ds, np.arange(n_batches * BATCH))
+
+
+def tf_flip_gap(torch, ds, row, card, cpu):
+    """The smallest top-two gap of the TF logits, card's or CPU's, at the
+    positions of ``row`` where their argmax differ (inf where none does)."""
+    from superconductor_vae_tpu_torch.training import stoich_conditioning
+    from superconductor_vae_tpu_torch.training.evaluate import _to_device
+    import numpy as np
+    logits, dev = [], next(card[0].parameters()).device
+    with torch.no_grad():
+        for (enc, dec), d in ((card, dev), (cpu, 'cpu')):
+            bt = _to_device(ds.batch(np.array([row])), d)
+            e = enc(bt['element_indices'], bt['element_fractions'], bt['element_mask'],
+                    bt['magpie'], bt['tc'])
+            logits.append(dec(e['z'], bt['tokens'], stoich_conditioning(bt),
+                              enc.heads_pred_for_decoder(e))['logits'][0].float().cpu())
+    flips = logits[0].argmax(-1) != logits[1].argmax(-1)
+    gaps = [(x.topk(2, dim=-1).values[:, 0] - x.topk(2, dim=-1).values[:, 1])[flips]
+            for x in logits]
+    return min((float(g.min()) for g in gaps if g.numel()), default=float('inf'))
+
+
+def real_weights_phase(torch, dev, ds, batches):
+    """run4's trained weights, read in place from the committed Orbax
+    snapshot by the port's own reader, on the main path of true-AR
+    evaluation: (a) the read, timed, every array's SHA-256 against the
+    table the CPU tests hold against Orbax; (b) the data phase's 1,024 rows
+    through eval_batch with K1 and with the plain path (streams equal but
+    at near-ties, each excused row's gap printed), 8 rows' encoder outputs
+    and TF logits card vs CPU; (c) evaluate_autoregressive over all rows
+    through K1 with the meta's gates: true-AR and TF within RUN4_ROW_SLACK
+    rows of the CPU's, K1 = layers x decode steps, the rows whose exact
+    match differs from the JAX package's committed eval and the lowest
+    margins run on the CPU too (a row that differs must be a near-tie),
+    formulas/s, peak memory, and the serial loop against the overlapped one
+    in turns, each one's busy share.  Returns K1's launches."""
+    import numpy as np
+    from superconductor_vae_tpu_torch.checkpoint import params_from_jax, read_snapshot
+    from superconductor_vae_tpu_torch.checkpoint.ocdbt import Zstd, array_digests
+    from superconductor_vae_tpu_torch.models import FormulaDecoder, config_from_meta
     from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
     from superconductor_vae_tpu_torch.tokenizer import EOS_ID, default_tokenizer
     from superconductor_vae_tpu_torch.training import (
-        build_luts, eval_train_config, evaluate, evaluate_autoregressive)
+        build_luts, eval_batch, eval_generation_config, eval_train_config, evaluate,
+        evaluate_autoregressive, stoich_conditioning)
 
-    meta = json.loads(META.read_text())
-    cfg = decoder.cfg
+    t_phase = time.perf_counter()
+    t_parts = {}
+
+    def part(name):
+        t_parts[name] = time.perf_counter() - t_phase - sum(t_parts.values())
+
+    # (a) the read
+    state = RUN4 / 'state'
+    on_disk = sum(f.stat().st_size for f in state.rglob('*') if f.is_file())
+    zstd = Zstd()
+    t0 = time.perf_counter()
+    tree = read_snapshot(state, zstd)
+    secs = time.perf_counter() - t0
+    digests = array_digests(tree)
+    n_bytes = sum(int(np.prod(shape)) * (2 if dt == 'bfloat16' else np.dtype(dt).itemsize)
+                  for dt, shape, _ in digests.values())
+    table = json.loads(RUN4_SHA256.read_text())
+    bad = [k for k in table if digests.get(k) != table[k]]
+    print(f'real: {zstd.lib._name} loaded; {state.relative_to(ROOT)} read in {secs:.2f} s: '
+          f'{on_disk / 1e9:.3f} GB on disk at {on_disk / secs / 1e9:.2f} GB/s, {len(digests)} '
+          f'arrays of {n_bytes / 1e9:.3f} GB at {n_bytes / secs / 1e9:.2f} GB/s')
+    check(len(digests) == len(table) == 570 and not bad,
+          f'real: {len(bad)} of {len(table)} arrays differ from the SHA-256 table: {bad[:5]}')
+    print(f'real: all {len(table)} arrays\' SHA-256 equal the table')
+    part('(a) read')
+
+    meta = json.loads((RUN4 / 'meta.json').read_text())
+    cfg = config_from_meta(meta['model_config'], pallas_decode=True)
+    plain_cfg = dataclasses.replace(cfg, pallas_decode=False)
+    encoder, decoder = params_from_jax(tree['enc_params'], tree['dec_params'], cfg, device=dev)
+    decoder_plain = FormulaDecoder(plain_cfg, device=dev).eval()
+    decoder_plain.load_state_dict(decoder.state_dict())
+    enc_cpu, dec_cpu = params_from_jax(tree['enc_params'], tree['dec_params'], plain_cfg,
+                                       device='cpu')
+    del tree
     tcfg = eval_train_config(cfg.max_len, meta['eval_gating'])
+    gcfg = eval_generation_config(tcfg, cfg.max_len)
     luts = build_luts(default_tokenizer(max_len=cfg.max_len), device=dev)
-    with CallLog(evaluate, 'generate_with_kv_cache') as log:
-        decode_step_attention.launches = 0
+    type_masks = luts['type_masks']
+    part('models')
+    print(f'real: run4 epoch {meta["epoch"]}, '
+          f'{sum(p.numel() for m in (encoder, decoder) for p in m.parameters()) / 1e6:.1f}M '
+          f'parameters (bf16 values) in float32; gates {meta["eval_gating"]}')
+
+    # (b) the first 1,024 rows through K1 and through the plain path
+    def run(dec):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = evaluate_autoregressive(encoder, decoder, ds, tcfg, luts, batch_size=BATCH,
-                                      max_batches=CORPUS_EVAL_BATCHES)
-        wall = time.perf_counter() - t0        # its results are on the host: synchronised
-        launches = decode_step_attention.launches
+        outs = [eval_batch(encoder, dec, bt, gcfg, type_masks=type_masks) for bt in batches]
+        torch.cuda.synchronize()
+        return outs, time.perf_counter() - t0
+
+    plain_outs, plain_wall = run(decoder_plain)          # (the e2e phase warmed K1's shapes)
+    decode_step_attention.launches = 0
+    outs, wall = run(decoder)
+    launches = decode_step_attention.launches
+    steps = [steps_run(o['generated'], EOS_ID) for o in outs]
+    check(launches == cfg.num_layers * sum(steps) > 0,
+          f'real (b): K1 launches {launches} != layers x steps {cfg.num_layers * sum(steps)}')
+    ties = sum(compare_streams(o, p, EOS_ID, f'real (b) batch {i} K1 vs plain')
+               for i, (o, p) in enumerate(zip(outs, plain_outs)))
+    n = BATCH * len(batches)
+    print(f'real (b): {n} rows, decode steps per batch {steps}; K1 launches {launches}; '
+          f'K1 {n / wall:.1f} formulas/s, plain {n / plain_wall:.1f}; streams equal but '
+          f'{ties} near-tie rows')
+    small = {k: v[:N_CPU_ROWS] for k, v in batches[0].items()}
+    with torch.no_grad():
+        for where, (enc, dec, bt) in (('card', (encoder, decoder, small)),
+                                      ('cpu', (enc_cpu, dec_cpu,
+                                               {k: v.cpu() for k, v in small.items()}))):
+            e = enc(bt['element_indices'], bt['element_fractions'], bt['element_mask'],
+                    bt['magpie'], bt['tc'])
+            tf = dec(e['z'], bt['tokens'], stoich_conditioning(bt),
+                     enc.heads_pred_for_decoder(e))['logits']
+            res = {k: e[k].float().cpu() for k in ('z', 'tc_pred', 'sc_pred',
+                                                   'family_composed_14')}
+            res['tf_logits'] = tf.float().cpu()
+            if where == 'card':
+                card = res
+    for k, want in res.items():
+        rel = ((card[k] - want).abs().max() / want.abs().max()).item()
+        print(f'real (b): card vs CPU {k} {tuple(want.shape)}: largest error over the largest '
+              f'value {rel:.3e}')
+        check(rel <= REAL_REL, f'real (b): card and CPU differ on {k} by {rel:.3e}')
+    part('(b)')
+
+    # (c) every row through K1, the scoring overlapped with the next batch
+    with CallLog(evaluate, 'generate_with_kv_cache') as log:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        decode_step_attention.launches = 0
+        t0 = time.perf_counter()
+        out = evaluate_autoregressive(encoder, decoder, ds, tcfg, luts, batch_size=BATCH)
+        wall = time.perf_counter() - t0          # its results are on the host: synchronised
+        launches_c = decode_step_attention.launches
+    peak = torch.cuda.max_memory_allocated()
     steps = [steps_run(o['tokens'], EOS_ID) for o in log.outputs]
     n = out['n_evaluated']
-    print(f'corpus: {n} rows in {len(steps)} batches of {BATCH} through K1 '
-          f'in {wall:.3f} s = {n / wall:.1f} formulas/s; decode steps summed over the batches '
-          f'{sum(steps)}; K1 launches {launches}')
-    print(f'corpus: true_ar_exact {out["ar_exact"]:.6f}, tf_exact {out["tf_exact"]:.6f}, '
-          f'tc_mae_kelvin {out["tc_mae_kelvin"]:.4f} (random weights)')
-    check(n == min(len(ds), CORPUS_EVAL_BATCHES * BATCH), f'evaluated {n} of {len(ds)} rows')
-    check(len(steps) == -(-n // BATCH), f'{len(steps)} batches for {n} rows')
-    check(launches > 0, 'K1 was not launched over the corpus')
-    check(launches == cfg.num_layers * sum(steps),
-          f'K1 launches {launches} != layers x steps {cfg.num_layers * sum(steps)}')
-    check(np.array_equal(out['per_sample_ar_exact'][:len(eval_exact)], eval_exact),
-          'the corpus eval and the e2e phase disagree on the first rows\' exact match')
-    print(f'corpus: the first {len(eval_exact)} rows\' exact match equals the e2e phase\'s')
-    return launches
+    print(f'real (c): {n} rows in {len(steps)} batches of {BATCH} through K1 in {wall:.3f} s = '
+          f'{n / wall:.1f} formulas/s; decode steps summed {sum(steps)} (a batch '
+          f'{min(steps)}-{max(steps)}); K1 launches {launches_c}; peak {peak / 2 ** 30:.2f} GiB')
+    check(n == len(ds), f'real (c): evaluated {n} of {len(ds)} rows')
+    check(launches_c == cfg.num_layers * sum(steps),
+          f'real (c): K1 launches {launches_c} != layers x steps {cfg.num_layers * sum(steps)}')
+    for key, name in (('ar', 'true-AR'), ('tf', 'TF')):
+        got = int(round(out[f'{key}_exact'] * n))
+        want = int(round(RUN4_CPU[key] * n))
+        print(f'real (c): {name} exact {out[f"{key}_exact"]:.7f} ({got} rows) against the CPU\'s '
+              f'{RUN4_CPU[key]:.7f} ({want} rows): {got - want:+d} rows')
+        check(abs(got - want) <= RUN4_ROW_SLACK,
+              f'real (c): {name} {got} rows exact, the CPU {want}')
+    part('(c) eval')
+    idx = out['sample_indices']
+    margin = out['per_sample_margin']
+    inexact = set(idx[~out['per_sample_ar_exact']].tolist())
+    record = {json.loads(line)['index'] for line in RUN4_ERRORS.read_text().splitlines()}
+    record &= set(idx.tolist())
+    other = sorted(inexact ^ record)
+    print(f'real (c): {len(inexact)} rows not exact; the JAX package\'s committed eval of these '
+          f'weights ({RUN4_ERRORS.name}) has {len(record)}; {len(other)} rows differ')
+    for r in other:
+        print(f'real (c): row {r} {"exact" if r not in inexact else "not exact"} on the card, '
+              f'{"not exact" if r in record else "exact"} in the record; smallest top-two gap '
+              f'{margin[r]:.3e}')
+    # the rows nearest a tie, and those, on the CPU
+    pick = list(other) + [int(r) for r in np.argsort(margin, kind='stable')
+                          if int(r) not in other]
+    pick = np.array(sorted(pick[:REAL_CPU_ROWS]), np.int64)
+    cpu_luts = {k: v.cpu() for k, v in luts.items()}
+    t0 = time.perf_counter()
+    cpu = evaluate_autoregressive(enc_cpu, dec_cpu, ds, tcfg, cpu_luts, sample_indices=pick,
+                                  batch_size=len(pick))
+    cpu_s = time.perf_counter() - t0
+    tf_card = ~out['position_errors'].any(axis=1)
+    tf_cpu = ~cpu['position_errors'].any(axis=1)
+    differ = 0
+    for j, r in enumerate(pick):
+        for name, a, b in (('true-AR', out['per_sample_ar_exact'][r],
+                            cpu['per_sample_ar_exact'][j]), ('TF', tf_card[r], tf_cpu[j])):
+            if a != b:
+                gap = (min(margin[r], cpu['per_sample_margin'][j]) if name == 'true-AR' else
+                       tf_flip_gap(torch, ds, r, (encoder, decoder), (enc_cpu, dec_cpu)))
+                differ += 1
+                print(f'real (c): row {r} {name} exact on the card {bool(a)}, on the CPU '
+                      f'{bool(b)}; smallest top-two gap {gap:.3e}')
+                check(gap < TIE, f'real (c): row {r} differs from the CPU ({name}) with gap '
+                                 f'{gap:.3e}')
+    print(f'real (c): {len(pick)} rows on the CPU in {cpu_s:.1f} s (the {len(other)} that '
+          f'differ from the record, then the lowest margins, up to {margin[pick].max():.3e}): '
+          f'{differ} differ from the card, each a near-tie')
+
+    part('(c) CPU rows')
+    # the serial loop and the overlapped one, in turns, on the same rows;
+    # both launch the same kernels, so one profiled run gives the device
+    # time of a row, and each loop's busy share is that over its own wall
+    walls = {'serial': [], 'overlapped': []}
+    sub = ds.subset(np.arange(REAL_TURN_BATCHES * BATCH))
+
+    def loop(how):
+        if how == 'serial':
+            return serial_eval(encoder, decoder, sub, tcfg, luts, REAL_TURN_BATCHES)
+        return evaluate_autoregressive(encoder, decoder, sub, tcfg, luts, batch_size=BATCH)
+    for how in ('serial', 'overlapped', 'overlapped', 'serial'):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = loop(how)
+        walls[how].append(time.perf_counter() - t0)
+        check(np.array_equal(res['per_sample_ar_exact'],
+                             out['per_sample_ar_exact'][:len(sub)]),
+              f'real (c): the {how} loop disagrees with the full eval')
+    part('(c) turns')
+    busy_s = trace_batch(torch, lambda: loop('overlapped'),
+                         f'the overlapped eval loop over {REAL_TURN_BATCHES} batches of {BATCH}',
+                         own='decode_attention_kernel')
+    rows = len(sub)
+    for how, v in walls.items():
+        print(f'real (c): the {how} loop over {rows} rows: '
+              + ', '.join(f'{rows / w:.1f} formulas/s'
+                          + (f' (device busy {100 * busy_s / w:.1f}%)' if busy_s else '')
+                          for w in v))
+    part('(c) trace')
+    print('real: by part ' + ', '.join(f'{k} {v:.1f} s' for k, v in t_parts.items()))
+    return launches + launches_c
 
 
 # -- speculative phase ----------------------------------------------------------
@@ -2122,11 +2359,17 @@ BENCH_TRAIN_STEPS = 5
 BENCH_RL_CHUNKS = (1, 1)                  # (warm, timed) chunks of 8 SCST steps
 BENCH_GEN_CALLS = (1, 3)                  # (warm, timed) generate calls
 K1_BF16_B = (512, 1024)                   # the gen probe's rows; the SCST rollout of 512
-# a bf16 near-tie: K1 (float32 inside, one rounding) and the plain path
-# (bf16 scores and probabilities) part where the top two logits are within
-# this gap; it must be at least twice the largest logit difference of the
-# two paths over a forced stream, which the phase measures and checks
-TIE_BF16 = 2 ** -4
+# (c) holds K1's bf16 decode to the plain bf16 path's own distance from
+# the float32 decode of the same weights, as tests/test_torch_port_bf16.py
+# holds the port's bf16 to JAX's: K1 bf16's largest logit difference from
+# float32 at most min(3 x the plain path's, BF16_CAP).  Measured on an H100
+# at 700 W, over a 29-step forced stream of 512 rows: token logits K1 0.0167,
+# plain 0.0171; top two type logits K1 0.0332, plain 0.0309; K1 against the
+# plain path 0.0156 / 0.0254, where the old bound (twice that within 2**-4)
+# had been passed by 0.0352 once.  At each K1 call K1 and its plain version
+# were 3.860e-03 of the largest output from float64, one bf16 rounding.
+BF16_CAP = 2 ** -4
+K1_BF16_REL = 2 ** -8 + 1e-6      # K1 bf16 against float64: one bf16 rounding, float32's sums
 # the 17 terms of multitask_loss's total, as its metrics name them
 BF16_LOSS_TERMS = ('formula_loss', 'reinforce_loss', 'tc_loss', 'magpie_loss', 'kl_loss',
                    'stoich_loss', 'count_loss', 'tc_class_loss', 'constraint_zoo_loss',
@@ -2157,10 +2400,9 @@ def k1_bf16_phase(torch, dev):
 def bench_phase(torch, dev):
     """The port's bench at ModelConfig() in bf16 (batch 512, K1 in the
     rollouts): its train, RL and gen probes with random heads, as the bench
-    runs them, then the RL and gen probes again with the stop and type heads
-    fixed (every rollout 29 steps), and gen casting the weights at every
-    call instead of once a rollout; a bf16 train step and an SCST step under
-    the profiler.  Checks (a) the bf16 path is real: float32 parameters and
+    runs them, then the gen probe again with the stop and type heads fixed
+    (every rollout 29 steps); an SCST step under the profiler.  Checks (a)
+    the bf16 path is real: float32 parameters and
     AdamW moments, bf16 logits and caches, finite losses, K1's bf16 instance
     launched 12 times a decode step of every probe rollout and nothing
     else; (c) a 29-step greedy rollout of 512 rows through K1 against the
@@ -2168,7 +2410,6 @@ def bench_phase(torch, dev):
     CPU.  Returns K1 bf16's launches on the probes."""
     import math
     from superconductor_vae_tpu_torch import bench
-    from superconductor_vae_tpu_torch.generation import generate as generate_module
     from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
     from superconductor_vae_tpu_torch.ops.fused_attention import flash_attention
     from superconductor_vae_tpu_torch.training import default_dyn, make_train_step
@@ -2205,15 +2446,19 @@ def bench_phase(torch, dev):
           f'bench: pre-boundary logits {logits.dtype}, caches {caches[0].dtype}: not bf16')
     del z, logits, caches
 
-    def paths(heads):
-        """The probes' runs on the main path: counts at 0 just before each,
-        read just after; K1's bf16 instance 12 x the decode steps of every
-        rollout (warm-ups included), nothing else launched."""
+    def paths(heads, warm, names):
+        """The probes ``names`` on the main path: counts at 0 just before
+        each, read just after; K1's bf16 instance 12 x the decode steps of
+        every rollout (warm-ups included), nothing else launched.
+        ``warm``: with the probes' warm-up chunk and call (the second pass
+        runs warm)."""
         out = {}
-        for name, probe in (('rl', lambda: bench.rl_probe(
-                s, chunks=BENCH_RL_CHUNKS[1], warm_chunks=BENCH_RL_CHUNKS[0])),
-                            ('gen', lambda: bench.gen_probe(
-                s, calls=BENCH_GEN_CALLS[1], warm_calls=BENCH_GEN_CALLS[0]))):
+        probes = {'rl': lambda: bench.rl_probe(
+                      s, chunks=BENCH_RL_CHUNKS[1], warm_chunks=BENCH_RL_CHUNKS[0] if warm else 0),
+                  'gen': lambda: bench.gen_probe(
+                      s, calls=BENCH_GEN_CALLS[1], warm_calls=BENCH_GEN_CALLS[0] if warm else 0)}
+        for name in names:
+            probe = probes[name]
             zero()
             r = probe()
             torch.cuda.synchronize()
@@ -2239,16 +2484,20 @@ def bench_phase(torch, dev):
     check(read() == (cfg.num_layers * sum(rt_steps),) * 2 + (0,),
           f'bench train: K1 bf16 / all K1 / K2 launches {read()} != layers x the round '
           f'trips\' decode steps {cfg.num_layers * sum(rt_steps)}, the same, 0')
-    runs = {'random heads': paths('random heads')}
+    t_probes = time.perf_counter()
+    runs = {'random heads': paths('random heads', warm=True, names=('rl', 'gen'))}
     fix_rollout_heads(torch, s.state.decoder)
-    runs['heads fixed'] = paths('heads fixed')
+    # the heads-fixed pass runs gen alone (its RL probe went for the smoke's
+    # time limit; the phase's (c) rolls out 29 steps with the heads fixed)
+    runs['heads fixed'] = paths('heads fixed', warm=False, names=('gen',))
+    print(f'bench: the probes\' two passes {time.perf_counter() - t_probes:.1f} s')
     # (a) parameters and moments float32 after the steps; losses finite
     for params, opt in s.state.groups():
         check(all(p.dtype == torch.float32 and opt.state[p]['exp_avg'].dtype == torch.float32
                   and opt.state[p]['exp_avg_sq'].dtype == torch.float32 for p in params),
               'bench: a parameter or AdamW moment is not float32')
     for name, m in [('train', train['metrics'])] + [
-            (f'rl ({h})', r['rl'][0]['metrics']) for h, r in runs.items()]:
+            (f'rl ({h})', r['rl'][0]['metrics']) for h, r in runs.items() if 'rl' in r]:
         bad = [k for k, v in m.items() if not math.isfinite(v)]
         check(not bad, f'bench {name}: metrics not finite: {bad}')
     n = len(s.batch['tokens'])
@@ -2260,43 +2509,37 @@ def bench_phase(torch, dev):
           f'of {max(int(n * s.tcfg.round_trip_subset_fraction), 1)} rows, warm-up included)')
     launches = train_k1
     for heads, r in runs.items():
-        rl_r, rl_k1 = r['rl']
+        if 'rl' in r:
+            rl_r, rl_k1 = r['rl']
+            launches += rl_k1
+            print(f'bench: rl ({heads}): {rl_r["steps"]} SCST steps of {rl_r["rl_batch_size"]} '
+                  f'in {rl_r["seconds"]:.3f} s = {rl_r["samples_per_s"]:.1f} RL samples/s; peak '
+                  f'{rl_r["peak_gib"]:.2f} GiB; decode steps of each rollout '
+                  f'{rl_r["warm_decode_steps"]} (warm) {rl_r["decode_steps"]}, and '
+                  f'{len(rl_r["round_trip_decode_steps"])} round trips of '
+                  f'{rl_r["round_trip_decode_steps"][0]}; K1 bf16 launches '
+                  f'{rl_k1}; reinforce {rl_r["metrics"]["reinforce_loss"]:.4f}, mean_reward '
+                  f'{rl_r["metrics"]["mean_reward"]:.4f}')
         gen_r, gen_k1 = r['gen']
-        launches += rl_k1 + gen_k1
-        print(f'bench: rl ({heads}): {rl_r["steps"]} SCST steps of {rl_r["rl_batch_size"]} in '
-              f'{rl_r["seconds"]:.3f} s = {rl_r["samples_per_s"]:.1f} RL samples/s; peak '
-              f'{rl_r["peak_gib"]:.2f} GiB; decode steps of each rollout '
-              f'{rl_r["warm_decode_steps"]} (warm) {rl_r["decode_steps"]}, and '
-              f'{len(rl_r["round_trip_decode_steps"])} round trips of '
-              f'{rl_r["round_trip_decode_steps"][0]}; K1 bf16 launches '
-              f'{rl_k1}; reinforce {rl_r["metrics"]["reinforce_loss"]:.4f}, mean_reward '
-              f'{rl_r["metrics"]["mean_reward"]:.4f}')
+        launches += gen_k1
         print(f'bench: gen ({heads}): {gen_r["calls"]} calls of {n} in {gen_r["seconds"]:.3f} s '
               f'= {gen_r["formulas_per_s"]:.1f} formulas/s; decode steps {gen_r["decode_steps"]}; '
               f'K1 bf16 launches {gen_k1}')
-    # the cost of casting the weights at every decode step: one of each
-    rates = {'once': [], 'every call': []}
-    for how in ('once', 'every call'):
-        with (_patched(generate_module, 'cast_weights_once', contextlib.nullcontext)
-              if how == 'every call' else contextlib.nullcontext()):
-            r = bench.gen_probe(s, calls=BENCH_GEN_CALLS[1], warm_calls=BENCH_GEN_CALLS[0])
-        check(r['decode_steps'] == [cfg.max_len - 1] * BENCH_GEN_CALLS[1],
-              f'bench: gen ran {r["decode_steps"]} steps')
-        rates[how].append(r['formulas_per_s'])
-    print('bench: gen (heads fixed), weights cast once a rollout against at every call: '
-          + '; '.join(f'{how} ' + ', '.join(f'{x:.1f}' for x in v) + ' formulas/s'
-                                for how, v in rates.items()))
+    # (gen casting the weights at every call, against once a rollout, went
+    # for the smoke's time limit)
 
-    trace_batch(torch, lambda: make_train_step(s.tcfg, s.luts)(
-        s.state, s.batch, 7, default_dyn(s.tcfg)), f'one bf16 train step of {n}')
+    # (the bf16 train step's trace went for the smoke's time limit)
     rl_tcfg = dataclasses.replace(s.tcfg, rl=dataclasses.replace(s.tcfg.rl, max_len=cfg.max_len))
     trace_batch(torch, lambda: make_train_step(rl_tcfg, s.luts, rl_enabled=True)(
         s.state, s.batch, 8, dict(default_dyn(rl_tcfg), rl_w=1.0)),
         f'one bf16 SCST step of {n} (heads fixed)', own='decode_attention_kernel')
+    t_c = time.perf_counter()
     bf16_rollout_check(torch, dev, s)
     del s
     torch.cuda.empty_cache()
+    t_d = time.perf_counter()
     bf16_step_check(torch, dev)
+    print(f'bench: (c) {t_d - t_c:.1f} s, (d) {time.perf_counter() - t_d:.1f} s')
     return launches, runs
 
 
@@ -2310,15 +2553,62 @@ def _patched(module, name, value):
         setattr(module, name, original)
 
 
+class K1Probe:
+    """Stands in for the decoder's K1 while entered: launches it, and holds
+    its output against the plain version in bf16
+    (``decode_step_attention_ref``) and the float64 attention of the same
+    bf16 inputs, keeping the largest difference of each from float64 over
+    the largest float64 output (``worst``), and the share of outputs where
+    K1 and the plain version differ."""
+
+    def __init__(self, torch):
+        from superconductor_vae_tpu_torch.models import decoder as decoder_module
+        from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+        self.torch, self.module, self.k1 = torch, decoder_module, decode_step_attention
+        self.worst = {'k1': 0.0, 'plain': 0.0}
+        self.apart, self.outputs = 0, 0
+
+    def __call__(self, q, k_new, v_new, k_cache, v_cache, position):
+        import math
+        from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention_ref
+        torch = self.torch
+        kc, vc = k_cache.clone(), v_cache.clone()
+        out = self.k1(q, k_new, v_new, k_cache, v_cache, position)
+        plain = decode_step_attention_ref(q, k_new, v_new, kc, vc, position)
+        n = position + 1
+        s = torch.einsum('bhd,bhtd->bht', q.double(), kc[:, :, :n].double()) / math.sqrt(
+            q.shape[-1])
+        f64 = torch.einsum('bht,bhtd->bhd', torch.softmax(s, dim=-1), vc[:, :, :n].double())
+        scale = f64.abs().max().item()
+        for name, o in (('k1', out), ('plain', plain)):
+            self.worst[name] = max(self.worst[name],
+                                   (o.double() - f64).abs().max().item() / scale)
+        self.apart += int((out != plain).sum())
+        self.outputs += out.numel()
+        return out
+
+    def __enter__(self):
+        self.module.decode_step_attention = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.decode_step_attention = self.k1
+
+
 def bf16_rollout_check(torch, dev, s):
     """(c) A greedy rollout of the batch's 512 rows in bf16 through K1, the
     stop and type heads fixed (29 steps), against the plain decode path
-    with the same weights: first the largest difference of the two paths'
-    token logits and top two type logits over K1's stream, forced into
-    both (it must be at
-    most half of TIE_BF16), then the streams, equal except where the top two
-    gated logits, or the top two type logits (which pick the type mask),
-    were within TIE_BF16 in either run."""
+    with the same weights.  First, over K1's stream forced into every path,
+    the largest difference of the token logits and of the top two type
+    logits of K1 bf16 and of the plain bf16 path from the float32 decode of
+    the same weights, and of the two bf16 paths from each other; at every
+    K1 call, K1 and its plain version in bf16 against the float64 attention
+    of the same inputs (``K1Probe``).  Then the streams, equal except where
+    the top two gated logits, or the top two type logits (which pick the
+    type mask), were within twice the two bf16 paths' largest difference in
+    either run.  K1 bf16's distance from float32 must be at most min(3 x the
+    plain bf16 path's, BF16_CAP), and at each call K1 within K1_BF16_REL of
+    float64."""
     from superconductor_vae_tpu_torch import bench
     from superconductor_vae_tpu_torch.generation import generate_with_kv_cache
     from superconductor_vae_tpu_torch.models import FormulaDecoder
@@ -2327,9 +2617,11 @@ def bf16_rollout_check(torch, dev, s):
     from superconductor_vae_tpu_torch.training import stoich_conditioning
     cfg, bt = s.mcfg, s.batch
     enc, k1 = s.state.encoder.eval(), s.state.decoder.eval()
-    plain = FormulaDecoder(dataclasses.replace(cfg, pallas_decode=False), device=dev,
-                           dtype=s.dtype).eval()
+    plain_cfg = dataclasses.replace(cfg, pallas_decode=False)
+    plain = FormulaDecoder(plain_cfg, device=dev, dtype=s.dtype).eval()
     plain.load_state_dict(k1.state_dict())
+    f32 = FormulaDecoder(plain_cfg, device=dev, dtype=torch.float32).eval()
+    f32.load_state_dict(k1.state_dict())
     gcfg = bench.gen_config(cfg)
     with torch.no_grad():
         out = enc(bt['element_indices'], bt['element_fractions'], bt['element_mask'],
@@ -2339,39 +2631,59 @@ def bf16_rollout_check(torch, dev, s):
                 for d in (k1, plain)]
         n_steps = steps_run(runs[0]['tokens'], EOS_ID)
         check(n_steps == cfg.max_len - 1, f'bench (c): the rollout ran {n_steps} steps')
-        worst = dict.fromkeys(('logits', 'type_logits'), 0.0)
+        keys = ('logits', 'type_logits')
+        worst = {pair: dict.fromkeys(keys, 0.0)
+                 for pair in ('k1 vs plain', 'k1 vs f32', 'plain vs f32')}
         type_gap = [torch.zeros_like(r['margin']) for r in runs]
-        with cast_weights_once(k1), cast_weights_once(plain):
+        decoders = (k1, plain, f32)
+        with cast_weights_once(k1), cast_weights_once(plain), K1Probe(torch) as probe:
             state = []
-            for d in (k1, plain):
-                mkv = d.memory_kv(d.build_memory(*cond))
+            for d in decoders:
+                c = tuple(x.float() for x in cond) if d is f32 else cond
+                mkv = d.memory_kv(d.build_memory(*c))
                 state.append((mkv, *d.init_cache(len(bt['tokens']))))
             tok = torch.full_like(runs[0]['tokens'][:, 0], BOS_ID)
             for pos in range(n_steps):
                 heads = [d.decode_step(tok, pos, kc, vc, mkv)[0]
-                         for d, (mkv, kc, vc) in zip((k1, plain), state)]
-                worst['logits'] = max(worst['logits'], (heads[0]['logits'].float()
-                                                        - heads[1]['logits'].float()).abs().max().item())
+                         for d, (mkv, kc, vc) in zip(decoders, state)]
                 # the type logits that pick the mask: the top two of each run
                 top2 = [h['type_logits'].float().topk(2, dim=-1).values for h in heads]
-                worst['type_logits'] = max(worst['type_logits'],
-                                           (top2[0] - top2[1]).abs().max().item())
+                for (a, b), pair in (((0, 1), 'k1 vs plain'), ((0, 2), 'k1 vs f32'),
+                                     ((1, 2), 'plain vs f32')):
+                    w = worst[pair]
+                    w['logits'] = max(w['logits'], (heads[a]['logits'].float()
+                                                    - heads[b]['logits'].float()).abs().max().item())
+                    w['type_logits'] = max(w['type_logits'],
+                                           (top2[a] - top2[b]).abs().max().item())
                 for gap, t2 in zip(type_gap, top2):
                     gap[:, pos] = t2[:, 0] - t2[:, 1]
                 tok = runs[0]['tokens'][:, pos]
-    print(f'bench (c): K1 against the plain path over K1\'s stream ({n_steps} steps, '
-          f'{len(tok)} rows, bf16): largest difference of the token logits '
-          f'{worst["logits"]:.4f}, of the top two type logits {worst["type_logits"]:.4f}; '
-          f'near-tie gap '
-          f'TIE_BF16 {TIE_BF16}')
-    check(2 * max(worst.values()) <= TIE_BF16, f'bench (c): the two paths\' logits differ by '
-          f'{worst}, more than half of TIE_BF16 {TIE_BF16}')
-    # a step is a near-tie if its gated logits' or its type logits' top two were close
+    for pair, w in worst.items():
+        print(f'bench (c): {pair} over K1\'s stream ({n_steps} steps, {len(tok)} rows): largest '
+              f'difference of the token logits {w["logits"]:.4f}, of the top two type logits '
+              f'{w["type_logits"]:.4f}')
+    print(f'bench (c): K1 bf16 at each of its {probe.outputs // (len(tok) * cfg.nhead * cfg.head_dim)} '
+          f'calls against the float64 attention of the same bf16 inputs, largest error over the '
+          f'largest output: K1 {probe.worst["k1"]:.3e}, its plain version in bf16 '
+          f'{probe.worst["plain"]:.3e}; outputs where the two differ '
+          f'{probe.apart / probe.outputs:.4%}')
+    for key in keys:
+        bound = min(3 * worst['plain vs f32'][key], BF16_CAP)
+        check(worst['k1 vs f32'][key] <= bound,
+              f'bench (c): K1 bf16\'s {key} {worst["k1 vs f32"][key]:.4f} from float32, over '
+              f'min(3 x the plain bf16 path\'s {worst["plain vs f32"][key]:.4f}, {BF16_CAP})')
+    check(probe.worst['k1'] <= K1_BF16_REL,
+          f'bench (c): K1 bf16 {probe.worst["k1"]:.3e} from float64, over {K1_BF16_REL:.3e}')
+    # a step is a near-tie if its gated logits' or its type logits' top two
+    # were within twice the two paths' largest difference on the forced stream
+    tie = 2 * max(worst['k1 vs plain'].values())
     got, want = ({'generated': r['tokens'], 'margin': torch.minimum(r['margin'], gap)}
                  for r, gap in zip(runs, type_gap))
-    excused = compare_streams(got, want, EOS_ID, 'bench (c) K1 vs plain, bf16', tie=TIE_BF16)
-    print(f'bench (c): greedy bf16 streams of {len(tok)} rows through K1 equal the plain '
-          f'path\'s; rows excused as near-ties {excused}')
+    excused = compare_streams(got, want, EOS_ID, 'bench (c) K1 vs plain, bf16', tie=tie)
+    print(f'bench (c): K1 bf16 within min(3 x the plain path\'s distance, {BF16_CAP}) of float32 '
+          f'and within {K1_BF16_REL:.3e} of float64; greedy bf16 streams of {len(tok)} rows '
+          f'through K1 equal the plain path\'s; rows excused as near-ties (gap under {tie:.4f}) '
+          f'{excused}')
     s.state.encoder.train()
     s.state.decoder.train()
 
@@ -3169,12 +3481,13 @@ HOLDOUT_K1_B = 2048               # the discovery decode's chunk (decode_latents
 HOLDOUT_CANDIDATES = 256          # SuperconductorDiscoveryPipeline.run(n_candidates)
 HOLDOUT_POOL = 2 * HOLDOUT_K1_B + 100    # two full decode chunks and a padded third
 HOLDOUT_TARGETS = 1               # every tier still runs on it; a second target only doubled the time
-HOLDOUT_BUDGET = 2048
+HOLDOUT_BUDGET = 1024            # (d) and the CLI (f); 2048 before the smoke's time limit cut it
 # the search (d) runs without zoom-in rounds: search()'s default, 2, runs
 # each tier three times (87-91 s a target on an H100); the CLI (f), a check
 # of the entry point, also with an inversion of 48 steps (384 took 31-35 s
 # a target in (d) on an H100)
 HOLDOUT_REFINE = 0
+HOLDOUT_INVERSION_STEPS = 128     # (d): search()'s default is 384 (the smoke's time limit)
 HOLDOUT_CLI_INVERSION_STEPS = 48
 HOLDOUT_GRAD_REL = 1e-4           # card vs CPU: first gradients w.r.t. z, of the largest component
 HOLDOUT_Z_TOL = 1e-3              # card vs CPU: z after 8 Adam steps
@@ -3328,7 +3641,7 @@ def holdout_phase(torch, dev, ds):
     del plain, plain_log, k1_out
     part('(c)')
 
-    # (d) a search of the first target at the default tiers and steps
+    # (d) a search of the first target at the default tiers, a shorter inversion
     quiet = []
     with Timings(torch, *((search, m) for m in (
             '_candidate_latents', 'head_guided_latents', '_inverse_regression_latents',
@@ -3338,7 +3651,8 @@ def holdout_phase(torch, dev, ds):
             host=('element_similarity', 'canonical_composition_key')) as log:
         results, secs, launches_d, _ = counted('(d) search', lambda: search.search(
             budget_per_target=HOLDOUT_BUDGET, targets=search.targets[:HOLDOUT_TARGETS],
-            refine_rounds=HOLDOUT_REFINE, seed=SEED, log_fn=quiet.append))
+            refine_rounds=HOLDOUT_REFINE, inversion_steps=HOLDOUT_INVERSION_STEPS, seed=SEED,
+            log_fn=quiet.append))
     for line in quiet:
         print(f'holdout (d): {line}')
     # a target starts at its pool (the first tier's first step) and ends
@@ -3360,8 +3674,8 @@ def holdout_phase(torch, dev, ds):
               f'consistency {r.wall_s - (o0 - lo):.2f} s; '
               f'decode {log.seconds("decode_latents", lo, hi):.2f} s, guided descent '
               f'{log.seconds("head_guided_latents", lo, hi):.2f} s, inversion descent '
-              f'{inv_s:.2f} s ({n_inv} x 384 steps of 24 starts: '
-              f'{n_inv * 384 / max(inv_s, 1e-9):.1f} '
+              f'{inv_s:.2f} s ({n_inv} x {HOLDOUT_INVERSION_STEPS} steps of 24 starts: '
+              f'{n_inv * HOLDOUT_INVERSION_STEPS / max(inv_s, 1e-9):.1f} '
               f'steps/s), pool {log.seconds("_candidate_latents", lo, hi):.2f} s, inverse '
               f'regression {log.seconds("_inverse_regression_latents", lo, hi):.2f} s, host '
               f'scoring {scoring:.2f} s; {r.n_candidates} distinct formulas, best '
@@ -3463,7 +3777,7 @@ def holdout_card_vs_cpu(torch, dev, cfg, search, search_h, cache):
 
 def holdout_cli_check(torch, counted):
     """(f) The port's holdout CLI on the loop phase's checkpoint through
-    K1, a search of one target at budget 2048 with a stream (no zoom-in
+    K1, a search of one target at budget 1024 with a stream (no zoom-in
     rounds, an inversion of 48 steps), then
     --oracle-only; the stream summarised by the port's holdout_summarize.
     Returns K1's launches."""
@@ -4193,12 +4507,13 @@ def main() -> int:
 
     def timed(name, out):
         phase_s[name] = time.perf_counter() - t_start - sum(phase_s.values())
+        print(f'phase {name}: {phase_s[name]:.1f} s', flush=True)
         return out
 
     k1, k1_err = timed('kernel', kernel_phase(torch, dev))
     ds, batches = timed('data', data_phase(torch, dev))
-    launches, (encoder, decoder), exact = timed('e2e', e2e_phase(torch, dev, ds, batches))
-    corpus_launches = timed('corpus', corpus_phase(torch, dev, ds, encoder, decoder, exact))
+    launches, (encoder, decoder) = timed('e2e', e2e_phase(torch, dev, ds, batches))
+    real_launches = timed('real', real_weights_phase(torch, dev, ds, batches))
     spec_launches = timed('spec', spec_phase(torch, dev, ds, batches, encoder, decoder))
     del encoder, decoder
     torch.cuda.empty_cache()
@@ -4216,7 +4531,7 @@ def main() -> int:
     holdout_launches, k1_b2048 = timed('holdout', holdout_phase(torch, dev, ds))
     surgery_launches, k1_dh144 = timed('surgery', surgery_phase(torch, dev, ds, batches))
 
-    k1_paths = {'eval': launches, 'eval corpus': corpus_launches,
+    k1_paths = {'eval': launches, 'real weights (run4)': real_launches,
                 'spec (plain scan)': spec_launches,
                 'defaults (round trip)': defaults_launches,
                 'soft-token (round trip)': soft_launches,

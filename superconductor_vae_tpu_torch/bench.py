@@ -206,6 +206,7 @@ def rl_probe(s: Setup, rl_batch: int = 512, chunks: int = 3, warm_chunks: int = 
         batch = _to_device(ds.batch(np.arange(rl_batch)), s.device)
 
     def run(n_chunks, seed):
+        m = None
         for i in range(n_chunks * chunk):
             s.state, m = step(s.state, batch, seed + i, dyn)
         return m

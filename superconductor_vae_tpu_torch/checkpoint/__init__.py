@@ -3,3 +3,4 @@ from .io import (ckpt_skew_transform, latest_checkpoint, load_checkpoint, save_c
                  save_params_checkpoint)
 from .manifest import build_manifest, check_manifest_drift
 from .migrate import auto_migrate
+from .ocdbt import is_orbax_snapshot, read_snapshot

@@ -23,9 +23,10 @@ same way (``grouped_feature_encoder_from_jax`` and the functions after
 it); flax's attention keeps its q/k/v kernels as [in, H, Dh] and its
 output kernel as [H, Dh, out], which are flattened to ``Linear`` weights.
 
-A machine without the Orbax reader (tensorstore) takes the trees from an
-npz file instead (``load_params_npz``): one float32 array a leaf, keyed by
-its ``/``-joined path under ``enc_params/``, ``dec_params/`` and, where the
+The trees come from an Orbax snapshot (``load_checkpoint``, through the
+port's own reader, ``ocdbt.py``: bf16 leaves as raw 16-bit words) or from
+an npz file (``load_params_npz``): one float32 array a leaf, keyed by its
+``/``-joined path under ``enc_params/``, ``dec_params/`` and, where the
 train state has a set decoder, ``set_params/``.
 """
 
@@ -42,6 +43,7 @@ from ..models.config import ModelConfig
 from ..models.decoder import FormulaDecoder
 from ..models.encoder import MaterialsEncoder
 from ..models.set_decoder import SetFormulaDecoder
+from ..utils.npz import as_f32
 
 _LEAF = {'kernel': 'weight', 'bias': 'bias', 'scale': 'weight',
          'embedding': 'weight', 'query': 'query', 'slot_queries': 'slot_queries'}
@@ -86,7 +88,7 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         *mods, name = path
         if name not in _LEAF:
             raise KeyError(f'unknown flax leaf {"/".join(path)}')
-        arr = np.array(leaf, dtype=np.float32)   # a copy; bf16 snapshots widen here
+        arr = as_f32(leaf)                       # a copy; bf16 snapshots widen here
         if name == 'kernel':
             arr = np.ascontiguousarray(arr.T)
         sd['.'.join([*mods, _LEAF[name]])] = torch.from_numpy(arr)

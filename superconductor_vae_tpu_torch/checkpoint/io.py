@@ -18,9 +18,9 @@ Both files are written into a hidden temporary directory, which is then
 renamed into place (an older save of the same name is moved aside first
 and deleted after), so a checkpoint's directory holds one whole save or
 none: a save cut off leaves at most a hidden directory, which
-``latest_checkpoint`` never looks at.  The JAX package's Orbax directories
-cannot be read here: the card's machine has no orbax or tensorstore (the
-eval CLI reads their params from an npz export, ``from_jax.py``).
+``latest_checkpoint`` never looks at.  ``load_checkpoint`` also reads the
+JAX package's Orbax snapshots, through the port's own reader
+(``ocdbt.py``: the card's machine has no Orbax or tensorstore).
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from .manifest import build_manifest
+from .ocdbt import is_orbax_snapshot, read_snapshot
 
 PAYLOAD = 'state.pt'
 
@@ -159,8 +160,14 @@ def latest_checkpoint(root: str | Path) -> Optional[Path]:
 
 
 def load_checkpoint(path: str | Path) -> Tuple[Dict[str, Any], Dict]:
-    """Returns (payload, meta): the payload's tensors on the CPU."""
+    """Returns (payload, meta): the payload's tensors on the CPU.  An Orbax
+    snapshot of the JAX package (``is_orbax_snapshot``) comes back as that
+    package's ``load_checkpoint`` restores it: nested dicts of numpy arrays,
+    flax's parameter trees among them (``params_from_jax`` loads those)."""
     path = Path(path).resolve()
-    restored = torch.load(path / PAYLOAD, map_location='cpu', weights_only=True)
+    if is_orbax_snapshot(path):
+        restored = read_snapshot(path / 'state')
+    else:
+        restored = torch.load(path / PAYLOAD, map_location='cpu', weights_only=True)
     meta = json.loads((path / 'meta.json').read_text())
     return restored, meta

@@ -4,17 +4,16 @@ True-AR and TF exact match, Tc error, SC and family metrics of a checkpoint
 over a corpus, on the card unless ``--cpu``:
 
     python -m superconductor_vae_tpu_torch.scripts.evaluate \\
-        --params build/run4_params.npz \\
-        --meta results/run4/ckpt_snapshot/meta.json
+        --checkpoint results/run4/ckpt_snapshot
 
-The weights come from a checkpoint in the port's format (``--checkpoint``)
-or, since an Orbax snapshot cannot be read without tensorstore, from an
-npz export of its params (``--params``, ``checkpoint/from_jax.py``
-``load_params_npz``) with the ``meta.json`` beside the snapshot
-(``--meta``); the meta gives the architecture, the decode gates
-(``eval_gating``) and the corpus normalisation (``ckpt_skew_transform``).
-The flags and the summary's keys are otherwise those of the JAX package's
-CLI, whose ``--checkpoint`` takes an Orbax snapshot.
+The weights come from ``--checkpoint``, a checkpoint in the port's format
+or an Orbax snapshot of the JAX package (read by the port's own reader,
+``checkpoint/ocdbt.py``), or from an npz export of a snapshot's params
+(``--params``, ``checkpoint/from_jax.py`` ``load_params_npz``) with the
+``meta.json`` beside the snapshot (``--meta``); the meta gives the
+architecture, the decode gates (``eval_gating``) and the corpus
+normalisation (``ckpt_skew_transform``).  The flags and the summary's
+keys are otherwise those of the JAX package's CLI.
 ``--speculative`` builds an n-gram draft from the evaluated rows' token
 stream (BOS in column 0) and decodes with speculative chunk verification
 (pure greedy, no decode gates); its chunk forward needs the plain cache

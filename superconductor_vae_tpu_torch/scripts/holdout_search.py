@@ -4,10 +4,12 @@ the card unless ``--cpu``:
     python -m superconductor_vae_tpu_torch.scripts.holdout_search \\
         --checkpoint outputs/checkpoints/best --budget 200 [--pallas-decode]
 
-``--checkpoint`` takes the port's format (``state.pt`` + ``meta.json``);
-``--params`` and ``--meta`` take an npz export of a JAX snapshot's params
-and its meta.json, as the eval CLI does.  The corpus defaults to the
-repo's ``data/processed/jarvis_merged.csv.gz``, normalised as the
+``--checkpoint`` takes the port's format (``state.pt`` + ``meta.json``) or
+an Orbax snapshot of the JAX package (``results/run4/ckpt_snapshot``), read
+by the port's own reader (``checkpoint/ocdbt.py``); ``--params`` and
+``--meta`` take an npz export of a snapshot's params and its meta.json.
+The corpus defaults to the repo's ``data/processed/jarvis_merged.csv.gz``,
+normalised as the
 checkpoint was trained (``ckpt_skew_transform``).  The other flags, the
 JSON written to ``--out`` and the ``--stream`` lines are the JAX CLI's;
 ``--pallas-decode`` decodes through K1, the decode-step attention kernel.
@@ -91,7 +93,8 @@ def add_source_args(p: argparse.ArgumentParser) -> None:
     of the port takes: ``--checkpoint`` or ``--params`` with ``--meta``,
     ``--cpu`` and ``--pallas-decode``."""
     src = p.add_mutually_exclusive_group(required=True)
-    src.add_argument('--checkpoint', help="a checkpoint directory in the port's format")
+    src.add_argument('--checkpoint', help="a checkpoint directory in the port's format, "
+                                          'or an Orbax snapshot of the JAX package')
     src.add_argument('--params', help='npz of the encoder and decoder params '
                                       '(enc_params/... and dec_params/... keys)')
     p.add_argument('--meta', default=None, help="the checkpoint's meta.json (with --params)")
@@ -120,10 +123,11 @@ def print_k1_launches(launches0: int) -> int:
 
 
 def load_models(args, device):
-    """(encoder, decoder, meta) in eval mode from ``--checkpoint`` or
-    ``--params`` / ``--meta``."""
+    """(encoder, decoder, meta) in eval mode from ``--checkpoint`` (the
+    port's format or an Orbax snapshot) or ``--params`` / ``--meta``; the
+    architecture is the meta's ``model_config``."""
     from superconductor_vae_tpu_torch.checkpoint import (
-        load_checkpoint, load_params_npz, params_from_jax)
+        is_orbax_snapshot, load_checkpoint, load_params_npz, params_from_jax)
     from superconductor_vae_tpu_torch.models import (
         FormulaDecoder, MaterialsEncoder, config_from_meta)
     if args.checkpoint:
@@ -131,13 +135,13 @@ def load_models(args, device):
     else:
         meta = json.loads(Path(args.meta).read_text())
     mcfg = config_from_meta(meta['model_config'], pallas_decode=args.pallas_decode)
-    if args.checkpoint:
+    if args.checkpoint and not is_orbax_snapshot(args.checkpoint):
         encoder = MaterialsEncoder(mcfg, device=device)
         decoder = FormulaDecoder(mcfg, device=device)
         encoder.load_state_dict(restored['enc_params'])
         decoder.load_state_dict(restored['dec_params'])
     else:
-        trees = load_params_npz(args.params)
+        trees = restored if args.checkpoint else load_params_npz(args.params)
         encoder, decoder = params_from_jax(trees['enc_params'], trees['dec_params'], mcfg,
                                            device=device)
     return encoder.eval(), decoder.eval(), meta

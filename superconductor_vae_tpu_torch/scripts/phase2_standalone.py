@@ -13,9 +13,10 @@ updated params as a new loadable checkpoint (optional):
         --checkpoint outputs/checkpoints/best --sub-epochs 3 \\
         --out-dir results/phase2 [--pallas-decode]
 
-``--checkpoint`` takes the port's format (``state.pt`` + ``meta.json``);
-``--params`` and ``--meta`` take an npz export of a JAX snapshot's params
-and its meta.json, as the eval CLI does.  ``--save-checkpoint`` writes a
+``--checkpoint`` takes the port's format (``state.pt`` + ``meta.json``) or
+an Orbax snapshot of the JAX package, as the eval CLI does; ``--params``
+and ``--meta`` take an npz export of a snapshot's params and its
+meta.json.  ``--save-checkpoint`` writes a
 params-only checkpoint in the port's format (optimizer states dropped,
 ``meta.json`` the source's with a ``phase2`` summary).  It writes
 ``phase2_log.jsonl`` (one record a sub-epoch) and ``phase2_summary.json``
@@ -61,8 +62,8 @@ def main(argv=None):
 
     import torch
     from superconductor_vae_tpu_torch.checkpoint import (
-        ckpt_skew_transform, load_checkpoint, load_params_npz, params_from_jax,
-        save_params_checkpoint)
+        ckpt_skew_transform, is_orbax_snapshot, load_checkpoint, load_params_npz,
+        params_from_jax, save_params_checkpoint)
     from superconductor_vae_tpu_torch.data import load_dataset
     from superconductor_vae_tpu_torch.generation.latent_analyzer import LatentSpaceAnalyzer
     from superconductor_vae_tpu_torch.models import (
@@ -82,14 +83,14 @@ def main(argv=None):
     else:
         meta = json.loads(Path(args.meta).read_text())
     mcfg = config_from_meta(meta['model_config'], pallas_decode=args.pallas_decode)
-    if args.checkpoint:
+    if args.checkpoint and not is_orbax_snapshot(args.checkpoint):
         encoder = MaterialsEncoder(mcfg, device=device)
         decoder = FormulaDecoder(mcfg, device=device)
         encoder.load_state_dict(restored['enc_params'])
         decoder.load_state_dict(restored['dec_params'])
         payload = {k: v for k, v in restored.items() if not k.endswith('_opt')}
     else:
-        trees = load_params_npz(args.params)
+        trees = restored if args.checkpoint else load_params_npz(args.params)
         encoder, decoder = params_from_jax(trees['enc_params'], trees['dec_params'], mcfg,
                                            device=device)
         payload = {}

@@ -12,6 +12,7 @@ function does.
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Mapping, Optional
 
 import numpy as np
@@ -107,6 +108,67 @@ def _to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
+def _to_host(out: Dict[str, torch.Tensor]):
+    """Starts the copies of one batch's outputs to the host (float
+    outputs as float32) and returns them with an event that the copies are
+    done behind (None on the CPU, where they are done on return).  On a
+    CUDA device the copies go to pinned memory behind the batch's work on
+    the current stream, so the next batch can be launched at once."""
+    host = {k: (v.float() if v.is_floating_point() else v).to('cpu', non_blocking=True)
+            for k, v in out.items()}
+    ready = None
+    device = next(iter(out.values())).device
+    if device.type == 'cuda':
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(device))
+    return host, ready
+
+
+def _score_batch(host, ready, idx: np.ndarray, ds: DatasetArrays,
+                 tokenizer: Optional[FractionAwareTokenizer]) -> Dict[str, object]:
+    """One batch's rows ``idx`` scored on the host, from ``_to_host``'s
+    copies once ``ready``: per-row exact match, TF position errors,
+    smallest top-two gap, Tc, family and SC head results, and (given a
+    tokenizer) an error record for each inexact row."""
+    if ready is not None:
+        ready.synchronize()
+    out = {k: v.numpy() for k, v in host.items()}
+    m = len(idx)
+    targets = ds.tokens[idx][:, 1:]
+    ar = _exact_match(out['generated'][:m], targets)
+    mask = targets != PAD_ID
+    # each row's smallest top-two logit gap over its steps up to EOS
+    gen = out['generated'][:m]
+    is_eos = gen == EOS_ID
+    last = np.where(is_eos.any(axis=1), is_eos.argmax(axis=1), gen.shape[1] - 1)
+    run = np.arange(gen.shape[1])[None, :] <= last[:, None]
+    errors = []
+    if tokenizer is not None:
+        for i in np.where(~ar)[0]:
+            errors.append({
+                'index': int(idx[i]),
+                'formula': ds.formulas[idx[i]],
+                'generated': tokenizer.decode(out['generated'][i]),
+                'tc_kelvin': float(ds.norm_stats.tc_to_kelvin(np.array([ds.tc[idx[i]]]))[0]),
+                'z_norm': float(out['z_norm'][i]),
+                'family': int(ds.family[idx[i]]),
+            })
+    return {
+        'ar': ar,
+        'tf': ((out['tf_pred'][:m] == targets) | ~mask).all(axis=1),
+        'pos_error': (out['tf_pred'][:m] != targets) & mask,
+        'pos_mask': mask,
+        'margin': np.where(run, out['margin'][:m], np.inf).min(axis=1),
+        'tc_pred': out['tc_pred'][:m],
+        'tc_true': ds.tc[idx],
+        'z_norm': out['z_norm'][:m],
+        'fam_correct': out['family_composed_14'][:m].argmax(axis=1) == ds.family[idx],
+        'sc_prob': 1.0 / (1.0 + np.exp(-out['sc_pred'][:m])),
+        'sc_true': ds.is_sc[idx],
+        'errors': errors,
+    }
+
+
 def evaluate_autoregressive(
     encoder, decoder,
     ds: DatasetArrays,
@@ -128,6 +190,12 @@ def evaluate_autoregressive(
     steps (how near its stream came to a tie; the JAX function has no such
     key).
 
+    As in JAX, the host scores batch b while the device decodes batch
+    b+1: the decode reads its early-exit flag at every step on this
+    thread, so the scoring (``_score_batch``) runs on one worker thread,
+    in batch order, from copies in pinned memory (``_to_host``).  The
+    result is the serial loop's, bit for bit.
+
     ``speculative_tables``: n-gram draft tables (models/draft.py
     ``build_ngram_draft``, or a bare bigram table) switch the decode to
     speculative chunk verification (``eval_batch``).  That path is pure
@@ -147,62 +215,30 @@ def evaluate_autoregressive(
     if max_batches:
         nb = min(nb, max_batches)
 
-    ar_exact, tf_exact = [], []
-    tc_preds, tc_trues, z_norms = [], [], []
-    fam_correct = []
-    sc_probs, sc_trues = [], []
-    pos_errors, pos_masks = [], []
-    margins = []
-    errors: List[dict] = []
-    for b in range(nb):
-        idx = sample_indices[b * batch_size: min((b + 1) * batch_size, n)]
-        pad_n = batch_size - len(idx)
-        full_idx = np.concatenate([idx, np.zeros(pad_n, np.int64)]) if pad_n else idx
-        out = eval_batch(encoder, decoder, _to_device(ds.batch(full_idx), device), gcfg,
-                         type_masks=type_masks, speculative_tables=speculative_tables)
-        out = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
-               for k, v in out.items()}
-        m = len(idx)
+    scoring = []
+    with ThreadPoolExecutor(max_workers=1, thread_name_prefix='eval-score') as pool:
+        for b in range(nb):
+            idx = sample_indices[b * batch_size: min((b + 1) * batch_size, n)]
+            pad_n = batch_size - len(idx)
+            full_idx = np.concatenate([idx, np.zeros(pad_n, np.int64)]) if pad_n else idx
+            out = eval_batch(encoder, decoder, _to_device(ds.batch(full_idx), device), gcfg,
+                             type_masks=type_masks, speculative_tables=speculative_tables)
+            scoring.append(pool.submit(_score_batch, *_to_host(out), idx, ds,
+                                       tokenizer if collect_errors else None))
+        parts = [f.result() for f in scoring]
+    return summarize_scores(parts, ds, sample_indices)
 
-        targets = ds.tokens[idx][:, 1:]
-        ar = _exact_match(out['generated'][:m], targets)
-        mask = targets != PAD_ID
-        tf = ((out['tf_pred'][:m] == targets) | ~mask).all(axis=1)
-        pos_errors.append((out['tf_pred'][:m] != targets) & mask)
-        pos_masks.append(mask)
-        ar_exact.append(ar)
-        tf_exact.append(tf)
-        # each row's smallest top-two logit gap over its steps up to EOS
-        gen = out['generated'][:m]
-        is_eos = gen == EOS_ID
-        last = np.where(is_eos.any(axis=1), is_eos.argmax(axis=1), gen.shape[1] - 1)
-        run = np.arange(gen.shape[1])[None, :] <= last[:, None]
-        margins.append(np.where(run, out['margin'][:m], np.inf).min(axis=1))
-        tc_preds.append(out['tc_pred'][:m])
-        tc_trues.append(ds.tc[idx])
-        z_norms.append(out['z_norm'][:m])
-        coarse_pred = out['family_composed_14'][:m].argmax(axis=1)
-        fam_correct.append(coarse_pred == ds.family[idx])
-        sc_probs.append(1.0 / (1.0 + np.exp(-out['sc_pred'][:m])))
-        sc_trues.append(ds.is_sc[idx])
 
-        if collect_errors and tokenizer is not None:
-            for i in np.where(~ar)[0]:
-                errors.append({
-                    'index': int(idx[i]),
-                    'formula': ds.formulas[idx[i]],
-                    'generated': tokenizer.decode(out['generated'][i]),
-                    'tc_kelvin': float(ds.norm_stats.tc_to_kelvin(
-                        np.array([ds.tc[idx[i]]]))[0]),
-                    'z_norm': float(out['z_norm'][i]),
-                    'family': int(ds.family[idx[i]]),
-                })
+def summarize_scores(parts: List[Dict[str, object]], ds: DatasetArrays,
+                     sample_indices: np.ndarray) -> Dict[str, object]:
+    """``evaluate_autoregressive``'s result from its batches' scores
+    (``_score_batch``), in batch order."""
+    def cat(key):
+        return np.concatenate([p[key] for p in parts])
 
-    ar_exact = np.concatenate(ar_exact)
-    tf_exact = np.concatenate(tf_exact)
-    tc_pred = np.concatenate(tc_preds)
-    tc_true = np.concatenate(tc_trues)
-    z_norm = np.concatenate(z_norms)
+    ar_exact, tf_exact = cat('ar'), cat('tf')
+    tc_pred, tc_true, z_norm = cat('tc_pred'), cat('tc_true'), cat('z_norm')
+    errors = [e for p in parts for e in p['errors']]
 
     k_pred = ds.norm_stats.tc_to_kelvin(tc_pred)
     k_true = ds.norm_stats.tc_to_kelvin(tc_true)
@@ -216,8 +252,8 @@ def evaluate_autoregressive(
     tc_mae = float(np.abs(k_pred - k_true).mean())
 
     # the SC head's classifier metrics, where both classes are present
-    sc_p = np.concatenate(sc_probs)
-    sc_t = np.concatenate(sc_trues).astype(np.int32)
+    sc_p = cat('sc_prob')
+    sc_t = cat('sc_true').astype(np.int32)
     sc_metrics = {}
     if len(np.unique(sc_t)) == 2:
         pred = (sc_p >= 0.5).astype(np.int32)
@@ -245,12 +281,12 @@ def evaluate_autoregressive(
         'tc_r2_per_bin': r2_per_bin,
         'sc_metrics': sc_metrics,
         'z_norm_mean': float(z_norm.mean()),
-        'family_coarse_acc': float(np.concatenate(fam_correct).mean()),
+        'family_coarse_acc': float(cat('fam_correct').mean()),
         'n_evaluated': int(len(ar_exact)),
         'error_records': errors,
         'per_sample_ar_exact': ar_exact,
-        'per_sample_margin': np.concatenate(margins),
+        'per_sample_margin': cat('margin'),
         'sample_indices': sample_indices[:len(ar_exact)],
-        'position_errors': np.concatenate(pos_errors),
-        'position_mask': np.concatenate(pos_masks),
+        'position_errors': cat('pos_error'),
+        'position_mask': cat('pos_mask'),
     }

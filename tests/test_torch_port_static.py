@@ -22,7 +22,7 @@ import torch_port_threads  # noqa: F401  (one torch thread a process)
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / 'superconductor_vae_tpu_torch').rglob('*.py')) + [
     ROOT / 'chip_smoke.py']
-FORBIDDEN = {'jax', 'jaxlib', 'flax', 'optax', 'orbax', 'superconductor_vae_tpu'}
+FORBIDDEN = {'jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tensorstore', 'superconductor_vae_tpu'}
 
 
 def _imported_modules(path):

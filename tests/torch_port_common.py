@@ -6,8 +6,9 @@ Parameters are numpy trees of the flax models' shapes (taken with
 ``np.random.default_rng(seed)``; the same trees drive the JAX model and,
 through ``params_from_jax``, the port.  Inputs come from numpy too.
 
-Run as a script, it exports an Orbax snapshot's params to the npz file the
-port's eval CLI reads (the card's machine has no Orbax reader):
+Run as a script, it exports an Orbax snapshot's params to an npz file,
+which the port's CLIs take with ``--params`` (they also read the snapshot
+itself, with ``--checkpoint``):
 
     PYTHONPATH=. python tests/torch_port_common.py results/run4/ckpt_snapshot \
         build/run4_params.npz
@@ -17,7 +18,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gzip
 import sys
+import types
 from pathlib import Path
 
 import jax
@@ -29,6 +32,7 @@ from superconductor_vae_tpu.models import FormulaDecoder as JaxDecoder
 from superconductor_vae_tpu.models import MaterialsEncoder as JaxEncoder
 from superconductor_vae_tpu.models.config import ModelConfig as JaxConfig
 from superconductor_vae_tpu.models.set_decoder import SetFormulaDecoder as JaxSetDecoder
+from superconductor_vae_tpu.training.config import TrainConfig as JaxTrainConfig
 from superconductor_vae_tpu_torch.checkpoint import params_from_jax
 from superconductor_vae_tpu_torch.models import ModelConfig
 
@@ -112,6 +116,34 @@ def to_torch(batch_np):
 def port_models(cfg: ModelConfig, trees):
     """The port's encoder and decoder on the CPU, loaded from ``trees``."""
     return params_from_jax(trees[0], trees[1], cfg, device='cpu')
+
+
+def save_tiny_snapshot(root: Path, cfg: ModelConfig, seed: int = 3) -> Path:
+    """An Orbax snapshot written by the JAX package's save_checkpoint under
+    ``root``: ``param_trees(cfg, seed)`` with the encoder's params in bf16
+    (run4's snapshots hold bf16) and the decoder's in float32, optimizer
+    states of AdamW's shape (a count, then moments like the params; numpy,
+    so nothing compiles), the step, and mastery arrays (float64, bool).
+    Returns its directory (``meta.json`` and ``state/``)."""
+    from superconductor_vae_tpu.checkpoint import save_checkpoint
+    enc, dec = param_trees(cfg, seed=seed)
+    enc = jax.tree.map(lambda x: x.astype(jnp.bfloat16), enc)
+
+    def adamw(tree):
+        return (np.zeros((), np.int32), jax.tree.map(np.zeros_like, tree),
+                jax.tree.map(np.ones_like, tree))
+    state = types.SimpleNamespace(step=np.int32(7), enc_params=enc, dec_params=dec,
+                                  enc_opt=adamw(enc), dec_opt=adamw(dec))
+    mastery = {'mastery': np.linspace(0, 1, 48), 'seen': np.arange(48) % 3 == 0}
+    return save_checkpoint(root, state, jax_config(cfg), JaxTrainConfig(), 5,
+                           extra_arrays={'mastery': mastery})
+
+
+def head_csv(src: Path, out: Path, n: int) -> Path:
+    """The first ``n`` rows of the gzipped CSV ``src`` (and its header) as ``out``."""
+    with gzip.open(src, 'rt') as f:
+        out.write_text(''.join(next(f) for _ in range(n + 1)))
+    return out
 
 
 def export_params_npz(restored, out_path):
