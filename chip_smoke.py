@@ -131,8 +131,8 @@
    torch.cuda.device_count() NCCL ranks, one a card, then in 2 gloo ranks
    on this card, each spawned: at run4 width (dropout 0, the set decoder's
    too) the data-parallel step at TrainConfig(batch_size=256)'s defaults on
-   its shard of each of 3 global batches, and the data-parallel SCST step
-   (rl_w 1) on 2 of them, each against the one-process step that rank 0
+   its shard of 1 global batch, and the data-parallel SCST step
+   (rl_w 1) on it, each against the one-process step that rank 0
    runs from the same state on the whole batch (metrics within 1e-5
    relative, the gradient norm 1e-4, as the CPU tests hold them; AdamW
    moments within 1e-4 of each group's largest, where the CPU tests ask
@@ -180,9 +180,10 @@
    each method's peak memory with the TF re-score rematerialised
    (torch.utils.checkpoint, as the step runs it) and, for one step, without.
 10. K1 bf16 at the bench paths' shapes (B=512, the gen probe; B=1024, the
-   SCST rollout of 512; T=30, Dh=72) against its plain version at every
-   position, caches equal, and timed beside the plain version, SDPA and the
-   bytes bound, averaged over positions 0..28.
+   SCST rollout of 512; T=30, Dh=72) and run5's recipe's at batch 128
+   (B=12, its round trip; B=256, its SCST rollout; at positions 0, 14, 29)
+   against its plain version, caches equal, and timed beside the plain
+   version, SDPA and the bytes bound, averaged over positions 0..28.
 11. Bench phase: the port's bench (superconductor_vae_tpu_torch/bench.py)
    at ModelConfig() (magpie_dim 145, run4's other widths) in bf16 compute
    with float32 parameters, batch 512, bench.py's TrainConfig (the set
@@ -231,6 +232,23 @@
    under torch.cuda.set_sync_debug_mode: no operation of the epoch makes
    the host wait for the card, and the one read of its sums does; then
    a runner and a per-batch epoch timed (4 steps each).
+12a. Resume phase: run5's recipe (superconductor_vae_tpu_torch/scripts/
+   launch_run5.sh) seeded as the recipe says, from run4's snapshot:
+   outputs/chip_smoke_resume/checkpoints/epoch_00899 a symlink to
+   results/run4/ckpt_snapshot, the port's training CLI with the recipe's
+   flags but --output, --epochs 902, --limit 256 and --pallas-decode (K1
+   in every rollout), on jarvis_merged_v2.csv.gz ('resume' lines).  (a)
+   The resume through --resume auto, read at epoch 900's start before any
+   update: the resume line says epoch 900, format orbax, params only,
+   run4's step; run4's mastery arrays skipped (another corpus); the four
+   modules' parameters bit-equal to params_from_jax of the same snapshot,
+   fresh optimizers.  (b) One float32 step at
+   TrainConfig()'s defaults from those weights on the corpus's first 32
+   rows, card against CPU, as the defaults phase's (b).  (c) The recipe in
+   bf16 for epochs 900 (teacher-forced) and 901 (RL, run4's controller
+   active since epoch 193 at rl_epoch_interval 3): finite losses, samples/s,
+   exact match and true-AR an epoch; K1 bf16 launched layers x decode steps
+   on each path (round trip, SCST rollout, Phase 2, eval) and nowhere else.
 12b. Phase-2 phase: training/self_supervised.py at run4's widths with the
    e2e phase's weights and the K1 decoder, float32 unless a step says
    otherwise ('phase2' lines).  (a) K1 against its plain version at Phase
@@ -259,7 +277,7 @@
    Dh=72), at every position 0-28, caches compared exactly, and timed (mean
    over positions) beside the plain version, SDPA and the bound; (b) the
    analyzer's cache over the corpus and SuperconductorDiscoveryPipeline.run
-   with 256 candidates; (c) a greedy decode of a 4,196-row candidate pool
+   with 256 candidates over the corpus's first 4,096 rows; (c) a greedy decode of a 4,196-row candidate pool
    in chunks of 2048 (the third padded) through K1 against the plain
    attention path (tokens equal up to EOS but at near-ties), 8 of its rows
    against the CPU, formulas/s; (d) HoldoutSearch.search of 1 target at
@@ -1971,10 +1989,11 @@ def defaults_phase(torch, dev, batches):
     return launches, rates, k1_rows
 
 
-def card_vs_cpu_step(torch, dev, batch, cfg, tcfg, dyn, phase):
+def card_vs_cpu_step(torch, dev, batch, cfg, tcfg, dyn, phase, weights=None):
     """One step of ``tcfg`` on the first 32 rows of ``batch`` (a round trip
-    of 3), on the card and on the CPU from the same weights, dropout off in
-    every model: the metrics within METRIC_TOL, the four groups' AdamW
+    of 3), on the card and on the CPU from the same weights (seeded, or the
+    state dicts ``weights`` of the state's modules by attribute name),
+    dropout off in every model: the metrics within METRIC_TOL, the four groups' AdamW
     moments and updates (``check_updates``), the round trip's tokens equal
     except at near-ties, the Hungarian permutations equal except between
     assignments whose costs lie within HUNGARIAN_TIE."""
@@ -2004,6 +2023,8 @@ def card_vs_cpu_step(torch, dev, batch, cfg, tcfg, dyn, phase):
                 hungarian.hungarian_assignment, ('perm', 'cost'))):
         for where in (dev, torch.device('cpu')):
             st = no_set_dropout(create_train_state(cfg0, tcfg0, seed=SEED + 1, device=where))
+            for name, sd in (weights or {}).items():
+                getattr(st, name).load_state_dict(sd)
             before = _group_tensors(st)
             st, m = make_train_step(tcfg0, build_luts(tok, device=where))(
                 st, {k: v.to(where) for k, v in small.items()}, SEED, dyn)
@@ -2134,6 +2155,21 @@ class CallLog:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.original)
+
+
+class K1Log(CallLog):
+    """A ``CallLog`` that also counts K1's launches made inside the calls."""
+
+    def __init__(self, module, name):
+        super().__init__(module, name)
+        self.launches = 0
+
+    def __call__(self, *args, **kwargs):
+        from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+        before = decode_step_attention.launches
+        out = super().__call__(*args, **kwargs)
+        self.launches += decode_step_attention.launches - before
+        return out
 
 
 def rl_step_run(torch, step, state, batches, dyn, n_steps, rl, eos_id):
@@ -2359,6 +2395,9 @@ BENCH_TRAIN_STEPS = 5
 BENCH_RL_CHUNKS = (1, 1)                  # (warm, timed) chunks of 8 SCST steps
 BENCH_GEN_CALLS = (1, 3)                  # (warm, timed) generate calls
 K1_BF16_B = (512, 1024)                   # the gen probe's rows; the SCST rollout of 512
+# run5's recipe at batch 128: the round trip's int(128 * 0.1) rows and the
+# SCST rollout's [2 x 128]
+K1_RECIPE_B = (12, 256)
 # (c) holds K1's bf16 decode to the plain bf16 path's own distance from
 # the float32 decode of the same weights, as tests/test_torch_port_bf16.py
 # holds the port's bf16 to JAX's: K1 bf16's largest logit difference from
@@ -2379,20 +2418,24 @@ BF16_LOSS_TERMS = ('formula_loss', 'reinforce_loss', 'tc_loss', 'magpie_loss', '
 
 def k1_bf16_phase(torch, dev):
     """(b) K1 bf16 against its plain version at the bench paths' shapes
-    (B=512, 1024; T=30, Dh=72) at every position, caches equal; then its
-    device time beside the plain version's and SDPA's, averaged over
-    positions 0..28, with the mean bytes bound.  Returns the kernels-line
-    numbers at B=1024 and the largest error."""
+    (B=512, 1024; T=30, Dh=72) and run5's recipe's (B=12, 256) at every
+    position, caches equal; then its device time beside the plain
+    version's and SDPA's, averaged over positions 0..28, with the mean
+    bytes bound.  Returns the kernels-line numbers at B=1024 and the
+    largest error."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     h, t, dh = 8, 30, 72
     worst = 0.0
-    for b in K1_BF16_B:
-        err = max(k1_held(torch, gen, b, h, t, dh, torch.bfloat16, p) for p in range(t))
-        print(f'bench: K1 check bfloat16 B={b} T={t} Dh={dh} pos 0..{t - 1}: max_abs_err '
-              f'{err:.3e} (tol {K1_TOL["bfloat16"]}) caches_equal=True')
-        worst = max(worst, err)
-    rows = {b: k1_position_means(torch, gen, b, h, t, dh, torch.bfloat16, 'bench')
-            for b in K1_BF16_B}
+    rows = {}
+    for label, sizes in (('bench', K1_BF16_B), ('k1 bf16 (run5 recipe)', K1_RECIPE_B)):
+        positions = range(t) if label == 'bench' else K1_MAIN_POSITIONS
+        for b in sizes:
+            err = max(k1_held(torch, gen, b, h, t, dh, torch.bfloat16, p) for p in positions)
+            print(f'{label}: K1 check bfloat16 B={b} T={t} Dh={dh} pos {list(positions)}: '
+                  f'max_abs_err {err:.3e} (tol {K1_TOL["bfloat16"]}) caches_equal=True')
+            worst = max(worst, err)
+        rows.update({b: k1_position_means(torch, gen, b, h, t, dh, torch.bfloat16, label)
+                     for b in sizes})
     torch.cuda.empty_cache()
     return rows[K1_BF16_B[-1]], worst
 
@@ -3153,6 +3196,216 @@ def epoch_runner_check(torch, dev, cfg, sub, st, step_rate):
 
 # Phase 2's rollouts: n_samples / 2 rows each, B=32 at TrainConfig's
 # phase2_n_samples (64) and B=128 at the standalone CLI's default (256)
+# -- resume phase ---------------------------------------------------------------
+
+RUN5_RECIPE = ROOT / 'superconductor_vae_tpu_torch' / 'scripts' / 'launch_run5.sh'
+RESUME_DIR = ROOT / 'outputs' / 'chip_smoke_resume'
+RESUME_LIMIT = 256                # run5 corpus rows; order augmentation K=1 nearly doubles them
+RESUME_EPOCHS = 902               # after run4's epoch 899: 900 (teacher-forced) and 901 (RL)
+
+
+def recipe_flags(path):
+    """The training CLI's flags in a run recipe: the words after ``--`` on
+    its ``exec`` line, continuation lines joined."""
+    import shlex
+    text = path.read_text().replace('\\\n', ' ')
+    words = shlex.split(next(line for line in text.splitlines() if line.startswith('exec ')))
+    return words[words.index('--') + 1:]
+
+
+def with_flags(flags, **values):
+    """``flags`` with the value of each ``--name`` in ``values`` (underscores
+    for dashes) replaced, or the pair appended."""
+    out = list(flags)
+    for name, value in values.items():
+        flag = '--' + name.replace('_', '-')
+        if flag in out:
+            out[out.index(flag) + 1] = str(value)
+        else:
+            out += [flag, str(value)]
+    return out
+
+
+class FirstEpochState:
+    """While entered, keeps the state that train_loop.train() builds and,
+    at the first epoch's learning-rate update (after the resume, before
+    any step), a copy of its four modules' parameters on the host, its
+    step and whether its optimizers hold any state."""
+
+    def __init__(self, train_loop):
+        self.loop, self.state, self.params = train_loop, None, None
+        self.create, self.set_lr = train_loop.create_train_state, train_loop.set_learning_rate
+
+    def _create(self, *args, **kwargs):
+        self.state = self.create(*args, **kwargs)
+        return self.state
+
+    def _set_lr(self, opt, lr):
+        if self.params is None:
+            st = self.state
+            self.params = {name: {k: v.detach().cpu().clone()
+                                  for k, v in getattr(st, name).state_dict().items()}
+                           for name in ('encoder', 'decoder', 'pz_proj', 'set_decoder')}
+            self.step = st.step
+            self.fresh = all(not o.state for _, o in st.groups())
+        return self.set_lr(opt, lr)
+
+    def __enter__(self):
+        self.loop.create_train_state, self.loop.set_learning_rate = self._create, self._set_lr
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.create_train_state, self.loop.set_learning_rate = self.create, self.set_lr
+
+
+def resume_phase(torch, dev):
+    """run5's recipe (superconductor_vae_tpu_torch/scripts/launch_run5.sh)
+    seeded as its comment says, from run4's snapshot, through the port's
+    training CLI on the card ('resume' lines): checkpoints/epoch_00899 a
+    symlink to results/run4/ckpt_snapshot, the recipe's flags verbatim but
+    --output, --epochs, --limit and --pallas-decode (K1 in every rollout).
+    (a) the resume, read at the first epoch's start: the resume line (epoch
+    900, format orbax, params only, run4's step), run4's mastery arrays
+    skipped, the four modules' parameters bit-equal to params_from_jax's of
+    the same snapshot, fresh optimizers; (b) one float32 step at
+    TrainConfig()'s defaults, dropout 0, from those weights on the corpus's
+    first 32 rows, card against CPU; (c) the recipe in bf16 for epochs 900
+    (TF) and 901 (RL): finite losses, samples/s and exact match an epoch,
+    K1 launched layers x decode steps on each path (round trip, SCST
+    rollout, Phase 2, eval).  Returns K1's launches in (c) by path."""
+    import io
+    import math
+    import shutil
+    import numpy as np
+    from superconductor_vae_tpu_torch.checkpoint import params_from_jax
+    from superconductor_vae_tpu_torch.checkpoint.ocdbt import read_snapshot
+    from superconductor_vae_tpu_torch.ops import rl, round_trip
+    from superconductor_vae_tpu_torch.ops.decode_attention import decode_step_attention
+    from superconductor_vae_tpu_torch.scripts import train as cli
+    from superconductor_vae_tpu_torch.tokenizer import EOS_ID
+    from superconductor_vae_tpu_torch.training import (
+        TrainConfig, default_dyn, evaluate, self_supervised, train_loop)
+    from superconductor_vae_tpu_torch.training.evaluate import _to_device
+
+    t_phase = time.perf_counter()
+    t_parts = {}
+
+    def part(name):
+        t_parts[name] = time.perf_counter() - t_phase - sum(t_parts.values())
+
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    (RESUME_DIR / 'checkpoints').mkdir(parents=True)
+    (RESUME_DIR / 'checkpoints' / 'epoch_00899').symlink_to(RUN4, target_is_directory=True)
+    flags = recipe_flags(RUN5_RECIPE)
+    argv = with_flags(flags, csv=ROOT / flags[flags.index('--csv') + 1], output=RESUME_DIR,
+                      epochs=RESUME_EPOCHS, limit=RESUME_LIMIT) + ['--pallas-decode']
+    print(f'resume: seeded {RESUME_DIR / "checkpoints" / "epoch_00899"} -> {RUN4}; the CLI\'s '
+          f'flags {" ".join(argv)}')
+    parser = cli.build_parser()
+    tcfg, mcfg = cli.configs(parser, parser.parse_args(argv))
+    check(tcfg.compute_dtype == 'bfloat16' and tcfg.resume == 'auto' and mcfg.pallas_decode,
+          f'resume: the recipe parsed to {tcfg.compute_dtype}, resume {tcfg.resume}')
+
+    # (c) the recipe through the CLI; (a) is read at its first epoch's start
+    paths = {'round trip': (round_trip, 'generate_with_kv_cache'),
+             'SCST rollout': (rl, '_rollout'),
+             'Phase 2': (self_supervised, 'generate_with_kv_cache'),
+             'eval': (evaluate, 'generate_with_kv_cache')}
+    logs = {name: K1Log(*where) for name, where in paths.items()}
+    buf = io.StringIO()
+    with contextlib.ExitStack() as stack:
+        for log in logs.values():
+            stack.enter_context(log)
+        first = stack.enter_context(FirstEpochState(train_loop))
+        stack.enter_context(contextlib.redirect_stdout(buf))
+        torch.cuda.synchronize()
+        decode_step_attention.launches = 0
+        t0 = time.perf_counter()
+        out = cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = decode_step_attention.launches
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f'resume (c): {line}')
+    part('(c) run')
+
+    # (a) the resume, as the first epoch found it
+    trees = read_snapshot(RUN4 / 'state')
+    step0 = int(trees['step'])
+    line = next((x for x in lines if x.startswith('[resume] ') and ' -> epoch ' in x), '')
+    check('epoch_00899 -> epoch 900 (opt=False ctl=True; format orbax; optimizer moments: '
+          f'none, params only; step {step0})' in line, f'resume (a): the resume line {line!r}')
+    check(any('mastery arrays of 26917 rows skipped' in x for x in lines),
+          'resume (a): run4\'s mastery arrays were not skipped')
+    cfg, ds = out['model_config'], out['dataset']
+    want = params_from_jax(trees['enc_params'], trees['dec_params'], cfg,
+                           device='cpu', pz_params=trees['pz_params'],
+                           set_params=trees['set_params'])
+    for name, ref in zip(('encoder', 'decoder', 'pz_proj', 'set_decoder'), want):
+        got, ref = first.params[name], ref.state_dict()
+        check(got.keys() == ref.keys() and all(
+            v.dtype == torch.float32 and torch.equal(v, ref[k]) for k, v in got.items()),
+            f'resume (a): {name} differs from params_from_jax of the snapshot')
+    check(first.step == step0 and first.fresh, 'resume (a): the step or the fresh optimizers')
+    print(f'resume (a): at epoch 900\'s start, before any update: the four modules equal '
+          f'params_from_jax of the snapshot bit for bit (float32 from bf16), step '
+          f'{first.step}, fresh optimizers; {len(ds)} rows of the corpus (--limit '
+          f'{RESUME_LIMIT}, order augmentation {tcfg.order_augment}, {tcfg.skew_transform})')
+    del want, trees
+    part('(a)')
+
+    # (b) a float32 default step from run4's weights, card against CPU
+    tcfg32 = TrainConfig()
+    batch = _to_device(ds.batch(np.arange(N_DEFAULT_CPU_ROWS)), dev)
+    card_vs_cpu_step(torch, dev, batch, cfg, tcfg32, dict(default_dyn(tcfg32), physz_w=1.0),
+                     'resume (b)', weights=first.params)
+    del batch, first
+    part('(b)')
+
+    # (c)'s checks
+    hist = out['history']
+    check(out['decoder'].dtype == torch.bfloat16, 'resume (c): the decoder is not bf16')
+    check([r['epoch'] for r in hist] == list(range(900, RESUME_EPOCHS)),
+          f'resume (c): epochs {[r["epoch"] for r in hist]}')
+    kinds = ['RL' if r['rl_weight'] > 0 else 'TF' for r in hist]
+    check(kinds[:2] == ['TF', 'RL'], f'resume (c): epoch kinds {kinds}')
+    for r, kind in zip(hist, kinds):
+        bad = [k for k in ('total', 'formula_loss', 'tc_loss') if not math.isfinite(r[k])]
+        check(not bad, f'resume (c): epoch {r["epoch"]}: {bad} not finite')
+        print(f'resume (c): epoch {r["epoch"]} ({kind}): {r["samples_per_s"]} samples/s in '
+              f'{r["epoch_time_s"]} s; exact {r["exact_match"]:.4f}, true-AR '
+              f'{r["true_ar_exact"]:.4f}, total {r["total"]:.4f}, rl_weight '
+              f'{r["rl_weight"]:.3f}, lr {r["lr"]:.3e}')
+    layers = cfg.num_layers
+    by_path = {}
+    for name, log in logs.items():
+        steps = [o['tokens'].shape[1] if name in ('round trip', 'Phase 2')
+                 else steps_run(o['tokens'], EOS_ID) for o in log.outputs]
+        rows = sorted({o['tokens'].shape[0] for o in log.outputs})
+        print(f'resume (c): {name}: {len(steps)} rollouts of {rows} rows, {sum(steps)} decode '
+              f'steps; K1 bf16 launches {log.launches} = {layers} x {sum(steps)}')
+        check(log.launches == layers * sum(steps),
+              f'resume (c): {name}: K1 launches {log.launches} != {layers} x {sum(steps)}')
+        by_path[name] = log.launches
+    check(by_path['round trip'] > 0 and by_path['SCST rollout'] > 0 and by_path['eval'] > 0,
+          f'resume (c): K1 missing on a path: {by_path}')
+    if not by_path['Phase 2']:
+        print(f'resume (c): Phase 2 runs at epochs 911, 927, ... (phase2_interval '
+              f'{tcfg.phase2_interval}) once TF exact >= {tcfg.phase2_auto_min_exact}: '
+              f'none in epochs 900-{RESUME_EPOCHS - 1}')
+    check(launches == sum(by_path.values()),
+          f'resume (c): K1 launches {launches} outside the four paths {by_path}')
+    print(f'resume (c): the recipe {run_s:.1f} s for epochs 900-{RESUME_EPOCHS - 1}; K1 bf16 '
+          f'{launches} launches {by_path}')
+    del out
+    shutil.rmtree(RESUME_DIR)
+    torch.cuda.empty_cache()
+    print(f'resume: the phase {time.perf_counter() - t_phase:.1f} s: '
+          + ', '.join(f'{k} {v:.1f} s' for k, v in t_parts.items()))
+    return {f'resume (run5 recipe): {k}': v for k, v in by_path.items()}
+
+
 P2_K1_B = (32, 128)
 P2_ROWS = BATCH * N_BATCHES        # the e2e phase's rows: the z-cache
 PHASE2_DIR = ROOT / 'outputs' / 'chip_smoke_phase2'
@@ -3479,6 +3732,7 @@ def phase2_standalone_check(torch, dev, per_sub_epoch):
 
 HOLDOUT_K1_B = 2048               # the discovery decode's chunk (decode_latents chunk=2048)
 HOLDOUT_CANDIDATES = 256          # SuperconductorDiscoveryPipeline.run(n_candidates)
+HOLDOUT_RUN_ROWS = 4096           # run()'s corpus: its host k-means over all 26,917 took ~28 s
 HOLDOUT_POOL = 2 * HOLDOUT_K1_B + 100    # two full decode chunks and a padded third
 HOLDOUT_TARGETS = 1               # every tier still runs on it; a second target only doubled the time
 HOLDOUT_BUDGET = 1024            # (d) and the CLI (f); 2048 before the smoke's time limit cut it
@@ -3577,12 +3831,16 @@ def holdout_phase(torch, dev, ds):
     check(cache.z.shape == (len(ds), cfg.latent_dim) and np.isfinite(cache.z).all(),
           'holdout (b): the cache')
     host = ('correct', 'validate', 'physics')
-    with Timings(torch, (pipe.analyzer, 'build_cache'), (pipe.analyzer, 'find_high_tc_clusters'),
-                  (pipe.generator, 'gradient_ascent_tc'), (pipe.generator, 'evolutionary'),
-                  (pipe, 'decode_latents'), (discovery, 'predict_tc_mc'),
-                  (pipe.corrector, 'correct'), (pipe.validator, 'validate'),
-                  (pipe.physics, 'validate', 'physics'), host=host) as log:
-        cands, secs, launches_b, _ = counted('(b) run', lambda: pipe.run(
+    pipe_b = SuperconductorDiscoveryPipeline(encoder, decoder, tok,
+                                             ds.subset(np.arange(HOLDOUT_RUN_ROWS)),
+                                             type_masks=tok.type_masks)
+    with Timings(torch, (pipe_b.analyzer, 'build_cache'),
+                 (pipe_b.analyzer, 'find_high_tc_clusters'),
+                 (pipe_b.generator, 'gradient_ascent_tc'), (pipe_b.generator, 'evolutionary'),
+                 (pipe_b, 'decode_latents'), (discovery, 'predict_tc_mc'),
+                 (pipe_b.corrector, 'correct'), (pipe_b.validator, 'validate'),
+                 (pipe_b.physics, 'validate', 'physics'), host=host) as log:
+        cands, secs, launches_b, _ = counted('(b) run', lambda: pipe_b.run(
             n_candidates=HOLDOUT_CANDIDATES, seed=SEED))
     print('holdout (b): run\'s parts: ' + ', '.join(
         f'{n} {log.seconds(n):.2f} s' for n in (
@@ -3591,12 +3849,14 @@ def holdout_phase(torch, dev, ds):
     strategies = {}
     for c in cands:
         strategies[c.strategy] = strategies.get(c.strategy, 0) + 1
-    print(f'holdout (b): run(n_candidates={HOLDOUT_CANDIDATES}) {secs:.2f} s: {len(cands)} '
+    print(f'holdout (b): run(n_candidates={HOLDOUT_CANDIDATES}) over the first '
+          f'{HOLDOUT_RUN_ROWS} rows {secs:.2f} s: {len(cands)} '
           f'candidates by strategy {strategies}; top '
           + '; '.join(f'{c.formula} rank {c.rank_score:.3g}' for c in cands[:3]))
     check(all(np.isfinite([c.rank_score, c.tc_pred_kelvin, c.tc_uncertainty]).all()
               for c in cands), 'holdout (b): a candidate is not finite')
     check(not encoder.training and not decoder.training, 'holdout (b): the modes')
+    del pipe_b
     part('(b)')
 
     # (c) a chunked greedy decode of a pool through K1 against the plain
@@ -4176,8 +4436,8 @@ def legacy_check(torch, dev):
 
 # -- dist phase -----------------------------------------------------------------
 
-N_DIST_STEPS = 3
-N_DIST_RL_STEPS = 2                # the first includes warm-up
+N_DIST_STEPS = 1                   # default steps a world, warm-up included (the smoke's clock)
+N_DIST_RL_STEPS = 1
 DIST_TOL = dict(rtol=1e-5, atol=1e-7)   # tests/test_torch_port_distributed.py's
 # AdamW moments against the one-process step's: of each group's largest.
 # The CPU tests hold them to 1e-5; on the card float32 GEMMs sum a 128-row
@@ -4268,11 +4528,11 @@ def dist_phase(torch, dev, batches):
               f'trip\'s {rt_rows} rows), 0 elsewhere, and {per_step} more a SCST step on every '
               f'rank; parameters and moments equal on every rank; peak '
               f'{max(r["peak_gib"] for r in ranks):.2f} GiB; the phase part {wall:.1f} s')
-        print(f'dist ({name}): train samples/s by step (the first includes warm-up): DP '
+        print(f'dist ({name}): train samples/s by step (warm-up included): DP '
               + ', '.join(f'{BATCH / s["seconds"]:.1f}' for s in steps0) + '; one process '
               + ', '.join(f'{BATCH / s["one_seconds"]:.1f}' for s in steps0) + f' [{card}]')
-        print(f'dist ({name}): SCST steps of {BATCH}, seconds by step (the first includes '
-              f'warm-up): DP by rank ' + '; '.join(
+        print(f'dist ({name}): SCST steps of {BATCH}, seconds by step (warm-up '
+              f'included): DP by rank ' + '; '.join(
                   f'{r}: ' + ', '.join(f'{s["seconds"]:.3f}' for s in res['cases'][1]['step'][
                       'steps']) for r, res in enumerate(ranks))
               + '; one process ' + ', '.join(f'{s["one_seconds"]:.3f}' for s in rl0)
@@ -4381,7 +4641,7 @@ def dist_phase(torch, dev, batches):
 
 # -- TP phase -------------------------------------------------------------------
 
-N_TP_STEPS = 2
+N_TP_STEPS = 1                     # warm-up included (the smoke's clock)
 TP_DECODE_ROWS = BATCH
 
 
@@ -4452,7 +4712,7 @@ def tp_phase(torch, dev, batches, world=2, backend='gloo'):
           f'across each model group; K1 {per_step} a step on each rank of data index 0 at '
           f'H={cfg0.nhead // 2}, 0 elsewhere; peak '
           f'{max(r["peak_gib"] for r in ranks):.2f} GiB a rank; the phase part {wall:.1f} s')
-    print(f'tp: train samples/s by step (the first includes warm-up): TP by rank '
+    print(f'tp: train samples/s by step (warm-up included): TP by rank '
           + '; '.join(f'{r}: ' + ', '.join(f'{BATCH / s["seconds"]:.1f}' for s in res['cases'][0][
               'step']['steps']) for r, res in enumerate(ranks))
           + '; one process ' + ', '.join(f'{BATCH / s["one_seconds"]:.1f}' for s in steps0)
@@ -4527,6 +4787,7 @@ def main() -> int:
     k1_bf16, k1_bf16_err = timed('k1 bf16', k1_bf16_phase(torch, dev))
     bench_launches, _ = timed('bench', bench_phase(torch, dev))
     loop_launches = timed('loop', loop_phase(torch, dev, ds, step_rate))
+    resume_launches = timed('resume', resume_phase(torch, dev))
     p2_launches, p2_bf16_launches = timed('phase2', phase2_phase(torch, dev, ds))
     holdout_launches, k1_b2048 = timed('holdout', holdout_phase(torch, dev, ds))
     surgery_launches, k1_dh144 = timed('surgery', surgery_phase(torch, dev, ds, batches))
@@ -4542,7 +4803,7 @@ def main() -> int:
                 **surgery_launches}
     launches = sum(k1_paths.values())
     k1_bf16_paths = {'bench probes: train, rl and gen': bench_launches,
-                     'phase2 bf16': p2_bf16_launches}
+                     **resume_launches, 'phase2 bf16': p2_bf16_launches}
     bf16_launches = sum(k1_bf16_paths.values())
     print(f'total: {time.perf_counter() - t_start:.1f} s; by phase: '
           + ', '.join(f'{k} {v:.1f} s' for k, v in phase_s.items()))

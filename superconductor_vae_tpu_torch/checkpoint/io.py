@@ -19,8 +19,10 @@ renamed into place (an older save of the same name is moved aside first
 and deleted after), so a checkpoint's directory holds one whole save or
 none: a save cut off leaves at most a hidden directory, which
 ``latest_checkpoint`` never looks at.  ``load_checkpoint`` also reads the
-JAX package's Orbax snapshots, through the port's own reader
-(``ocdbt.py``: the card's machine has no Orbax or tensorstore).
+JAX package's Orbax checkpoints, through the port's own reader
+(``ocdbt.py``: the card's machine has no Orbax or tensorstore), and
+``load_train_checkpoint`` gives either format as the port's payload
+(``from_jax.train_payload_from_jax``): what a resume and the CLIs read.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from .from_jax import train_payload_from_jax
 from .manifest import build_manifest
 from .ocdbt import is_orbax_snapshot, read_snapshot
 
@@ -137,18 +140,28 @@ def ckpt_skew_transform(meta: Dict) -> str:
     return (meta.get('data_norm') or {}).get('skew_transform', 'rank_gauss')
 
 
+def is_checkpoint(path: str | Path) -> bool:
+    """Whether ``path`` holds a whole checkpoint: ``meta.json`` beside the
+    port's payload or a JAX package's Orbax ``state/``."""
+    path = Path(path)
+    return (path / 'meta.json').exists() and (
+        (path / PAYLOAD).exists() or is_orbax_snapshot(path))
+
+
 def latest_checkpoint(root: str | Path) -> Optional[Path]:
     """'auto' resume resolution: the checkpoint with the HIGHEST epoch wins
-    (epoch_* directories and the 'best' and 'interrupt' tags all compete),
-    so a crash loop never rewinds to an older 'best'; on a tie the epoch_*
-    directory wins.  A directory without both files is skipped."""
+    (epoch_* directories and the 'best' and 'interrupt' tags all compete,
+    in the port's format or the JAX package's), so a crash loop never
+    rewinds to an older 'best'; on a tie the epoch_* directory wins.  A
+    directory that is not a whole checkpoint (``is_checkpoint``) is
+    skipped."""
     root = Path(root)
     if not root.exists():
         return None
     candidates = []
     for p in list(root.glob('epoch_*')) + [root / 'best', root / 'interrupt']:
         meta = p / 'meta.json'
-        if meta.exists() and (p / PAYLOAD).exists():
+        if is_checkpoint(p):
             try:
                 ep = int(json.loads(meta.read_text()).get('epoch', -1))
             except (ValueError, json.JSONDecodeError):
@@ -171,3 +184,16 @@ def load_checkpoint(path: str | Path) -> Tuple[Dict[str, Any], Dict]:
         restored = torch.load(path / PAYLOAD, map_location='cpu', weights_only=True)
     meta = json.loads((path / 'meta.json').read_text())
     return restored, meta
+
+
+def load_train_checkpoint(path: str | Path, accumulation_steps: Optional[int] = None
+                          ) -> Tuple[Dict[str, Any], Dict, str]:
+    """(payload, meta, format) of the checkpoint ``path``, the payload in
+    the port's format whichever package wrote it: format 'port' as
+    ``load_checkpoint`` gives it, 'orbax' (the JAX package's) through
+    ``train_payload_from_jax``, with each optimizer state for the port's
+    optimizer at ``accumulation_steps`` and none when that is None."""
+    restored, meta = load_checkpoint(path)
+    if not is_orbax_snapshot(path):
+        return restored, meta, 'port'
+    return train_payload_from_jax(restored, meta, accumulation_steps), meta, 'orbax'

@@ -24,7 +24,8 @@ tensorstore's published OCDBT storage format:
   frame.  bfloat16 comes out as raw 16-bit words, numpy's ``V2`` records,
   as an npz of bf16 does (``utils/npz.py`` ``as_f32`` widens them).
 - ``_METADATA`` (JSON, beside the store) gives each leaf's path in the
-  tree; the tree comes back as the nested dicts that the JAX package's
+  tree (an empty list is a leaf of type 'List' there, with no array); the
+  tree comes back as the nested dicts that the JAX package's
   ``load_checkpoint`` returns.
 
 zstd is libzstd's own, loaded through ctypes (``LIBZSTD_NAMES``): no
@@ -393,9 +394,12 @@ def read_snapshot(state: str | Path, zstd: Optional[Zstd] = None) -> Dict[str, A
     for entry in tree_meta['tree_metadata'].values():
         keys = entry['key_metadata']
         value_type = entry['value_metadata']['value_type']
-        if value_type not in ('np.ndarray', 'jax.Array'):
+        if value_type == 'List':          # an empty list, kept in the metadata alone
+            leaf = []
+        elif value_type in ('np.ndarray', 'jax.Array'):
+            leaf = read_array(store, '.'.join(str(k['key']) for k in keys))
+        else:
             raise SnapshotError(f'{state}: leaf {keys} of type {value_type!r} is not read')
-        leaf = read_array(store, '.'.join(str(k['key']) for k in keys))
         node = tree
         for k in keys[:-1]:
             node = node.setdefault(k['key'], {})

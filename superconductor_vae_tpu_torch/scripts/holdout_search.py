@@ -122,28 +122,35 @@ def print_k1_launches(launches0: int) -> int:
     return n
 
 
-def load_models(args, device):
-    """(encoder, decoder, meta) in eval mode from ``--checkpoint`` (the
-    port's format or an Orbax snapshot) or ``--params`` / ``--meta``; the
-    architecture is the meta's ``model_config``."""
+def read_source(args):
+    """(payload, meta) of ``--checkpoint`` (either package's format, through
+    ``load_train_checkpoint``: the parameters and the other keys, no
+    optimizer state) or of ``--params`` / ``--meta`` (the npz's groups as
+    state dicts)."""
     from superconductor_vae_tpu_torch.checkpoint import (
-        is_orbax_snapshot, load_checkpoint, load_params_npz, params_from_jax)
+        load_params_npz, load_train_checkpoint)
+    from superconductor_vae_tpu_torch.checkpoint.from_jax import state_dict_from_flax
+    if args.checkpoint:
+        payload, meta, _ = load_train_checkpoint(args.checkpoint)
+        return {k: v for k, v in payload.items() if not k.endswith('_opt')}, meta
+    trees = load_params_npz(args.params)
+    return ({group: state_dict_from_flax(tree) for group, tree in trees.items()},
+            json.loads(Path(args.meta).read_text()))
+
+
+def load_models(args, device, payload=None, meta=None):
+    """(encoder, decoder, meta) in eval mode from ``payload`` and ``meta``,
+    by default ``read_source(args)``; the architecture is the meta's
+    ``model_config``."""
     from superconductor_vae_tpu_torch.models import (
         FormulaDecoder, MaterialsEncoder, config_from_meta)
-    if args.checkpoint:
-        restored, meta = load_checkpoint(args.checkpoint)
-    else:
-        meta = json.loads(Path(args.meta).read_text())
+    if payload is None:
+        payload, meta = read_source(args)
     mcfg = config_from_meta(meta['model_config'], pallas_decode=args.pallas_decode)
-    if args.checkpoint and not is_orbax_snapshot(args.checkpoint):
-        encoder = MaterialsEncoder(mcfg, device=device)
-        decoder = FormulaDecoder(mcfg, device=device)
-        encoder.load_state_dict(restored['enc_params'])
-        decoder.load_state_dict(restored['dec_params'])
-    else:
-        trees = restored if args.checkpoint else load_params_npz(args.params)
-        encoder, decoder = params_from_jax(trees['enc_params'], trees['dec_params'], mcfg,
-                                           device=device)
+    encoder = MaterialsEncoder(mcfg, device=device)
+    decoder = FormulaDecoder(mcfg, device=device)
+    encoder.load_state_dict(payload['enc_params'])
+    decoder.load_state_dict(payload['dec_params'])
     return encoder.eval(), decoder.eval(), meta
 
 

@@ -5,10 +5,14 @@
 # order augmentation K=1 (one extra spelling a row already doubles an
 # epoch's draws) and the chunked RL epochs.
 #
-# Seed outputs/run5/checkpoints/epoch_00899 with run4's final state in the
-# port's format first, so that `--resume auto` picks it up; the inputs
-# shift under the new normalisation and corpus, so expect an early dip in
-# exact match that the fine-tune recovers. Run from the repo root.
+# Seed outputs/run5/checkpoints/epoch_00899 with run4's snapshot first, as
+# the JAX recipe does, so that `--resume auto` picks it up: the port reads
+# the JAX package's Orbax checkpoint itself, so a symlink will do
+#   mkdir -p outputs/run5/checkpoints
+#   ln -s ../../../results/run4/ckpt_snapshot outputs/run5/checkpoints/epoch_00899
+# The inputs shift under the new normalisation and corpus, so expect an
+# early dip in exact match that the fine-tune recovers. Run from the repo
+# root.
 exec python -u -m superconductor_vae_tpu_torch.scripts.train_resilient --stall-timeout 1800 -- \
   --csv data/processed/jarvis_merged_v2.csv.gz --epochs 1100 \
   --batch-size 128 --bf16 --lr 1e-4 --checkpoint-interval 25 \

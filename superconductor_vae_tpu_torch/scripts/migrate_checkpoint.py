@@ -1,6 +1,6 @@
-"""Checkpoint migration CLI (port of scripts/migrate_checkpoint.py), on the
-port's checkpoint format (``state.pt`` + ``meta.json``, checkpoint/io.py);
-host only:
+"""Checkpoint migration CLI (port of scripts/migrate_checkpoint.py), writing
+the port's checkpoint format (``state.pt`` + ``meta.json``,
+checkpoint/io.py); host only:
 
     # grow the decoder's vocab (isotope rows start from their elements)
     python -m superconductor_vae_tpu_torch.scripts.migrate_checkpoint \\
@@ -12,9 +12,11 @@ host only:
     # widen the whole encoder (function preserving, integer factor)
     ... widen-encoder outputs/checkpoints/best --factor 2 --out outputs/wider-enc
 
-Each writes a params-only checkpoint (``enc_params``, ``dec_params`` and
-the source's ``set_params`` and ``pz_params`` where it has them; step 0,
-no optimizer state) to ``<out>/<tag>``, the tag naming the surgery as
+The source is a checkpoint of either package (``load_train_checkpoint``:
+an Orbax checkpoint of the JAX package is converted on the way in).  Each
+writes a params-only checkpoint (``enc_params``, ``dec_params`` and the
+source's ``set_params`` and ``pz_params`` where it has them; step 0, no
+optimizer state) to ``<out>/<tag>``, the tag naming the surgery as
 the JAX CLI names it; ``load_checkpoint``, the eval CLIs and ``train()``
 with ``--resume <dir>`` and the new config read it.  Its ``meta.json``
 keeps the source's epoch and, unlike the JAX CLI (which writes
@@ -77,7 +79,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> Path:
     args = build_parser().parse_args(argv)
     from superconductor_vae_tpu_torch.checkpoint import (
-        build_manifest, load_checkpoint, save_params_checkpoint)
+        build_manifest, load_train_checkpoint, save_params_checkpoint)
     from superconductor_vae_tpu_torch.models import config_from_meta
     from superconductor_vae_tpu_torch.models import surgery
     from superconductor_vae_tpu_torch.training import TrainConfig
@@ -97,7 +99,7 @@ def main(argv=None) -> Path:
               f'num_layers={mcfg.num_layers} vocab_size={mcfg.vocab_size})')
         return path
 
-    restored, meta = load_checkpoint(args.checkpoint)
+    restored, meta, _ = load_train_checkpoint(args.checkpoint)
     mcfg = config_from_meta(meta['model_config'])
     enc, dec = restored['enc_params'], restored['dec_params']
 

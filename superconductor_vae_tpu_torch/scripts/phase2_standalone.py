@@ -61,13 +61,10 @@ def main(argv=None):
         p.error('--params needs --meta')
 
     import torch
-    from superconductor_vae_tpu_torch.checkpoint import (
-        ckpt_skew_transform, is_orbax_snapshot, load_checkpoint, load_params_npz,
-        params_from_jax, save_params_checkpoint)
+    from superconductor_vae_tpu_torch.checkpoint import ckpt_skew_transform, save_params_checkpoint
     from superconductor_vae_tpu_torch.data import load_dataset
     from superconductor_vae_tpu_torch.generation.latent_analyzer import LatentSpaceAnalyzer
-    from superconductor_vae_tpu_torch.models import (
-        FormulaDecoder, MaterialsEncoder, config_from_meta)
+    from superconductor_vae_tpu_torch.scripts.holdout_search import load_models, read_source
     from superconductor_vae_tpu_torch.tokenizer import default_tokenizer
     from superconductor_vae_tpu_torch.training import build_luts
     from superconductor_vae_tpu_torch.training.self_supervised import (
@@ -78,24 +75,9 @@ def main(argv=None):
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    if args.checkpoint:
-        restored, meta = load_checkpoint(args.checkpoint)
-    else:
-        meta = json.loads(Path(args.meta).read_text())
-    mcfg = config_from_meta(meta['model_config'], pallas_decode=args.pallas_decode)
-    if args.checkpoint and not is_orbax_snapshot(args.checkpoint):
-        encoder = MaterialsEncoder(mcfg, device=device)
-        decoder = FormulaDecoder(mcfg, device=device)
-        encoder.load_state_dict(restored['enc_params'])
-        decoder.load_state_dict(restored['dec_params'])
-        payload = {k: v for k, v in restored.items() if not k.endswith('_opt')}
-    else:
-        trees = restored if args.checkpoint else load_params_npz(args.params)
-        encoder, decoder = params_from_jax(trees['enc_params'], trees['dec_params'], mcfg,
-                                           device=device)
-        payload = {}
-    encoder.eval()
-    decoder.eval()
+    payload, meta = read_source(args)
+    encoder, decoder, _ = load_models(args, device, payload, meta)
+    mcfg = encoder.cfg
     tokenizer = default_tokenizer(max_len=mcfg.max_len)
     ds = load_dataset(args.csv, max_len=mcfg.max_len, tokenizer=tokenizer,
                       limit=args.limit, skew_transform=ckpt_skew_transform(meta))

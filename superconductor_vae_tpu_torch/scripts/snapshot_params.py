@@ -1,5 +1,7 @@
-"""A params-only snapshot of a checkpoint in the port's format (port of
-scripts/snapshot_params.py).
+"""A params-only snapshot of a checkpoint, in the port's format (port of
+scripts/snapshot_params.py).  The source is a checkpoint of either package
+(``load_train_checkpoint``: an Orbax checkpoint of the JAX package is
+converted on the way in, its bf16 or float32 leaves as float32 tensors).
 
 It keeps the inference payload (every model's parameters and the step
 count; no optimizer moments or accumulators), casts float32 tensors to
@@ -21,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-from superconductor_vae_tpu_torch.checkpoint import load_checkpoint, save_params_checkpoint
+from superconductor_vae_tpu_torch.checkpoint import load_train_checkpoint, save_params_checkpoint
 
 
 def _cast(obj, keep_fp32: bool):
@@ -42,7 +44,7 @@ def _nbytes(obj) -> int:
 def snapshot(src: Path, out: Path, keep_fp32: bool = False) -> int:
     """Writes the snapshot of the checkpoint ``src`` to ``out``; returns its
     payload's bytes."""
-    restored, meta = load_checkpoint(src)
+    restored, meta, _ = load_train_checkpoint(src)
     payload = _cast({k: v for k, v in restored.items() if not k.endswith('_opt')}, keep_fp32)
     meta['snapshot'] = {'source': str(src),
                         'params_dtype': 'float32' if keep_fp32 else 'bfloat16'}

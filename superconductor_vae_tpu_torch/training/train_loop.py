@@ -67,9 +67,8 @@ import numpy as np
 import torch
 
 from ..analysis import TopologyAnalyzer
-from ..checkpoint import (auto_migrate, check_manifest_drift, latest_checkpoint,
-                          load_checkpoint, save_checkpoint)
-from ..checkpoint.io import PAYLOAD
+from ..checkpoint import (auto_migrate, check_manifest_drift, is_checkpoint,
+                          latest_checkpoint, load_train_checkpoint, save_checkpoint)
 from ..data import (DatasetArrays, WeightedEpochSampler, compute_sample_weights,
                     load_dataset, resample_order_augmentation, synthetic_dataset)
 from ..data.sampler import shard_batch_indices
@@ -276,15 +275,17 @@ def train(
             w = w * curriculum.get_sample_weights()
         return w
 
-    # resume: params, optimizer states, step, controllers, mastery
+    # resume: params, optimizer states, step, controllers, mastery; a JAX
+    # checkpoint converted on the way in (load_train_checkpoint)
     if tcfg.resume:
         path = (latest_checkpoint(out_dir / 'checkpoints')
                 if tcfg.resume == 'auto' else Path(tcfg.resume))
         if path is not None and (Path(path) / 'meta.json').exists():
-            restored, meta = load_checkpoint(path)
+            restored, meta, fmt = load_train_checkpoint(path, tcfg.accumulation_steps)
             drift = check_manifest_drift(meta.get('manifest', {}), mcfg, tcfg)
             if drift:
-                log_fn(f'[resume] manifest drift: {drift}')
+                whose = ' (of the JAX package\'s configs)' if fmt == 'orbax' else ''
+                log_fn(f'[resume] manifest drift{whose}: {drift}')
             restored, migrations = auto_migrate(restored, meta, mcfg,
                                                 tokenizer=tokenizer, seed=tcfg.seed)
             for act in migrations:
@@ -326,6 +327,9 @@ def train(
                 mastery.peak = m['peak'].numpy().copy()
                 if mastery.seen.any():
                     sampler.set_weights(_combined_weights())
+            elif m is not None:
+                log_fn(f'[resume] mastery arrays of {len(m["mastery"])} rows skipped: the '
+                       f'dataset has {len(ds)} (another corpus or normalisation)')
             start_epoch = int(meta.get('epoch', -1)) + 1
             if tcfg.resume_grace_epochs > 0:
                 drop_ctl.grace_until = max(drop_ctl.grace_until,
@@ -333,8 +337,10 @@ def train(
                 drop_ctl.prev_exact = None
                 log_fn(f'[resume] drop-detector grace until epoch '
                        f'{drop_ctl.grace_until} (corpus/normalization shift expected)')
-            log_fn(f'[resume] {path} -> epoch {start_epoch} '
-                   f'(opt={"enc_opt" in restored} ctl={bool(ctl)})')
+            opts = [k for k in ('enc_opt', 'dec_opt', 'set_opt', 'pz_opt') if k in restored]
+            log_fn(f'[resume] {path} -> epoch {start_epoch} (opt={bool(opts)} '
+                   f'ctl={bool(ctl)}; format {fmt}; optimizer moments: '
+                   f'{", ".join(opts) if opts else "none, params only"}; step {state.step})')
 
     if group is not None:
         replicate(modules, group)
@@ -506,9 +512,9 @@ def train(
             exact = last_metrics.get('exact_match', 0.0)
             if drop_ctl.check(epoch, exact):
                 best_dir = out_dir / 'checkpoints' / 'best'
-                if (best_dir / PAYLOAD).exists():
+                if is_checkpoint(best_dir):
                     # every rank reads it (rank 0 wrote it an epoch or more ago)
-                    restored_best, _ = load_checkpoint(best_dir)
+                    restored_best, _, _ = load_train_checkpoint(best_dir)
                     state.encoder.load_state_dict(restored_best['enc_params'])
                     state.decoder.load_state_dict(restored_best['dec_params'])
                     log_fn(f'[rollback] epoch {epoch}: exact {exact:.3f} collapsed; '
